@@ -10,7 +10,17 @@ width through their user entry points:
     3 requests of 50 images (ragged last chunk), weights loaded through
     ``models/weights.py`` from a seeded random reference-layout checkpoint;
   * train: ``SupervisedTrainer`` (HG3, K=9, bf16, bs 32, synthetic data)
-    takes 8 steps — one heatmap-kernel launch per step — then validates.
+    takes 8 steps — one heatmap-kernel launch per step — then validates;
+  * train_mt_ubpl: ``MTUBPLTrainer`` (HG3, K=9, bf16, bs 32 = 16 unlabeled
+    + 16 labeled, two students and two EMA teachers over two views) takes
+    the 8 steps of one ``TwoStreamBatchSampler`` epoch — two kernel launches
+    per step — then validates its three heads, writes a checkpoint and
+    serves it through ``PoseEstimator.from_checkpoint``; a few more steps
+    run with ``remat`` for its memory and time;
+  * train_mt: ``MeanTeacherTrainer``, same shape, 4 steps and a validation.
+
+The training phases are each followed by a ``torch.profiler`` window over a
+few more steps (device busy time, idle share, device time by kind).
 
 It also runs the port's HG2 on the reference golden
 (``tests/goldens/torch_import_hg2.npz``) in fp32 with TF32 off and holds it
@@ -190,49 +200,207 @@ def phase_serve(counts):
     return launches
 
 
-def phase_train(counts):
-    import torch
+def train_config(**kw):
+    """The full-width training shape: HG3, K=9, 256 -> 64, bf16, bs 32,
+    256 synthetic training images."""
     from ubpl_torch.config import Config
-    from ubpl_torch.data.sampler import supervised_epoch_batches
+    base = dict(model="HG3", synthetic_data=True, synthetic_kps=9,
+                inp_res=256, out_res=64, train_count=256, valid_count=64,
+                train_bs=32, infer_bs=32, compute_dtype="bfloat16")
+    return Config(**{**base, **kw})
+
+
+def timed_steps(tr, batches, sched, launches_per_step, done=0):
+    """Drive `batches` one by one through the trainer's step loop; returns
+    (per-step ms, per-step metrics).  Fails unless every step launched the
+    heatmap kernel exactly `launches_per_step` times (`done` steps were
+    taken since the counts were set to 0)."""
+    import torch
     from ubpl_torch.ops.kernels import heatmap_synth as HS
-    from ubpl_torch.train.supervised import SupervisedTrainer
-    n_steps, bs = 8, 32
-    cfg = Config(model="HG3", synthetic_data=True, synthetic_kps=9,
-                 inp_res=256, out_res=64, train_count=256, valid_count=64,
-                 label_ratio=1.0, train_bs=bs, infer_bs=32,
-                 compute_dtype="bfloat16")
-    tr = SupervisedTrainer(cfg, device="cuda")
-    batches = supervised_epoch_batches(tr.labeled_idxs, bs, tr.rng)[:n_steps]
-    if len(batches) != n_steps:
-        raise AssertionError(f"only {len(batches)} batches")
-    counts.reset()
-    step_ms, losses = [], []
+    step_ms, metrics = [], []
     for i, idxs in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = tr.run_train_steps([idxs])[0]
+        m = tr.run_train_steps([idxs], *sched)[0]
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["pec_loss"]))
-        if HS.launches != i + 1:
+        metrics.append({k: v.tolist() for k, v in m.items()})
+        if HS.launches != launches_per_step * (done + i + 1):
             raise AssertionError(f"heatmap kernel launched {HS.launches} "
-                                 f"times in {i + 1} steps")
+                                 f"times in {done + i + 1} steps")
+    return step_ms, metrics
+
+
+def assert_finite(what, *values):
+    for v in values:
+        if not np.isfinite(np.asarray(v, np.float64)).all():
+            raise AssertionError(f"non-finite {what}: {values}")
+
+
+def phase_train(counts):
+    from ubpl_torch.data.sampler import supervised_epoch_batches
+    from ubpl_torch.train.supervised import SupervisedTrainer
+    n_steps = 8
+    cfg = train_config(label_ratio=1.0)
+    tr = SupervisedTrainer(cfg, device="cuda")
+    batches = supervised_epoch_batches(tr.labeled_idxs, cfg.train_bs,
+                                       tr.rng)[:n_steps]
+    if len(batches) != n_steps:
+        raise AssertionError(f"only {len(batches)} batches")
+    counts.reset()
+    step_ms, metrics = timed_steps(tr, batches, (), 1)
     _, accs, errs = tr.validate()
     launches = counts.read()
-    if not (np.isfinite(losses).all() and np.isfinite(accs[0]).all()
-            and np.isfinite(errs[0]).all()):
-        raise AssertionError(f"non-finite loss/PCK: {losses} {accs} {errs}")
+    losses = [m["pec_loss"] for m in metrics]
+    assert_finite("loss/PCK", losses, accs[0], errs[0])
     steady = statistics.median(step_ms[1:])
-    emit({"phase": "train", "regime": "supervised", "model": "HG3",
-          "dtype": "bfloat16", "train_bs": bs, "steps": n_steps,
+    emit({"phase": "train", "regime": "supervised", "model": cfg.model,
+          "dtype": cfg.compute_dtype, "train_bs": cfg.train_bs,
+          "steps": n_steps,
           "step_ms": step_ms, "steady_step_ms_median": steady,
-          "images_per_s": bs / steady * 1e3, "pec_loss": losses,
+          "images_per_s": cfg.train_bs / steady * 1e3, "pec_loss": losses,
           "valid_pck_mean": accs[0][-1], "kernel_launches": launches})
-    profile_steps(tr, batches[:3], steady)
+    profile_steps("train_profile", tr, batches[:3], (), steady)
     return launches
 
 
-def profile_steps(tr, batches, step_ms):
+def same_parameters(a, b):
+    import torch
+    return all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def phase_train_mt_ubpl(counts):
+    """The flagship regime through its entry points: 8 steps (epoch-1
+    schedules, so the consistency weight is on and the EMA weight is 0.5),
+    3-head validation, checkpoint, serving of the checkpoint."""
+    import torch
+    from ubpl_torch.infer import PoseEstimator
+    from ubpl_torch.train.checkpointing import save_checkpoint
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    cfg = train_config(label_ratio=0.5, train_bs_labeled=16)
+    torch.cuda.reset_peak_memory_stats()
+    tr = MTUBPLTrainer(cfg, device="cuda")
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())
+    if len(batches) != 8:
+        raise AssertionError(f"{len(batches)} batches in the epoch, not 8")
+    pairs = list(zip(tr.students, tr.teachers))
+    if not all(same_parameters(s, t) for s, t in pairs):
+        raise AssertionError("a teacher does not start as its student")
+    counts.reset()
+    step_ms, metrics = timed_steps(tr, batches[:1], sched, 2)
+    if any(same_parameters(s, t) for s, t in pairs):
+        raise AssertionError("EMA teacher still equals its student after "
+                             "a step at ema_alpha 0.5")
+    more_ms, more = timed_steps(tr, batches[1:], sched, 2, done=1)
+    step_ms, metrics = step_ms + more_ms, metrics + more
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, accs, errs = tr.validate()
+    launches = counts.read()
+    for m in metrics:
+        assert_finite("MT_UBPL metric", *m.values())
+    assert_finite("PCK", accs, errs)
+    if len(accs) != 3 or len(accs[0]) != cfg.kps_count + 1:
+        raise AssertionError(f"validation heads {np.shape(accs)}")
+    base = os.path.join(BUILD, "smoke_mt_ubpl")
+    save_checkpoint(base, 0, tr.checkpoint_state(), True,
+                    extra={"best_acc": tr.best_acc,
+                           "best_epoch": tr.best_epoch})
+    est = PoseEstimator.from_checkpoint(
+        base, model=cfg.model, kps_count=cfg.kps_count,
+        means=(0.5, 0.5, 0.5), batch_size=32, device="cuda",
+        compute_dtype=cfg.compute_dtype,
+        inp_res=cfg.inp_res, out_res=cfg.out_res)
+    if not same_parameters(est.model, tr.teachers[0]):
+        raise AssertionError("from_checkpoint did not serve teacher 1")
+    kps, scores = est.predict(tr.valid_data.images[:8].cpu().numpy())
+    if kps.shape != (8, cfg.kps_count, 2):
+        raise AssertionError(f"served shape {kps.shape}")
+    assert_finite("served keypoints", kps, scores)
+    steady = statistics.median(step_ms[1:])
+    last = metrics[-1]
+    emit({"phase": "train_mt_ubpl", "regime": "MT_UBPL", "model": cfg.model,
+          "dtype": cfg.compute_dtype, "train_bs": cfg.train_bs,
+          "train_bs_labeled": cfg.train_bs_labeled, "views": tr.n_views,
+          "remat": cfg.remat, "steps": len(step_ms), "step_ms": step_ms,
+          "steady_step_ms_median": steady,
+          "images_per_s": cfg.train_bs / steady * 1e3,
+          "peak_memory_gb": peak_gb, "schedules": sched,
+          "pec": last["pec"], "mtc": last["mtc"], "epc": last["epc"],
+          "fdc": last["fdc"], "n_pseudo": last["n_pseudo"],
+          "n_sel": last["n_sel"],
+          "valid_pck_mean": [a[-1] for a in accs],
+          "served_images": 8, "kernel_launches": launches,
+          "kernel_launches_per_step": 2})
+    profile_steps("train_mt_ubpl_profile", tr, list(tr.make_sampler())[:3],
+                  sched, steady)
+    phase_remat(tr, sched, steady, peak_gb)
+    return launches
+
+
+def phase_remat(tr, sched, plain_ms, plain_gb):
+    """The same trainer with cfg.remat: the students' forwards are
+    recomputed in the backward.  Its memory and step time beside the plain
+    step's (not part of the counted path)."""
+    import torch
+    torch.cuda.synchronize()
+    tr.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr.cfg.remat = True
+    step_ms = []
+    for idxs in list(tr.make_sampler())[:4]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.run_train_steps([idxs], *sched)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        assert_finite("MT_UBPL metric with remat",
+                      *(v.tolist() for v in m.values()))
+    tr.cfg.remat = False
+    emit({"phase": "train_mt_ubpl_remat", "steps": len(step_ms),
+          "step_ms": step_ms,
+          "steady_step_ms_median": statistics.median(step_ms[1:]),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "plain_step_ms": plain_ms, "plain_peak_memory_gb": plain_gb})
+
+
+def phase_train_mt(counts):
+    """Mean teacher: one student, one teacher, two views; 4 steps and a
+    validation of its two heads."""
+    import torch
+    from ubpl_torch.train.mean_teacher import MeanTeacherTrainer
+    cfg = train_config(label_ratio=0.5, train_bs_labeled=16)
+    torch.cuda.reset_peak_memory_stats()
+    tr = MeanTeacherTrainer(cfg, device="cuda")
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())[:4]
+    counts.reset()
+    step_ms, metrics = timed_steps(tr, batches, sched, 2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, accs, errs = tr.validate()
+    launches = counts.read()
+    for m in metrics:
+        assert_finite("MT metric", *m.values())
+    assert_finite("PCK", accs, errs)
+    if len(accs) != 2:
+        raise AssertionError(f"validation heads {np.shape(accs)}")
+    steady = statistics.median(step_ms[1:])
+    emit({"phase": "train_mt", "regime": "MT", "model": cfg.model,
+          "dtype": cfg.compute_dtype, "train_bs": cfg.train_bs, "views": 2,
+          "steps": len(step_ms), "step_ms": step_ms,
+          "steady_step_ms_median": steady,
+          "images_per_s": cfg.train_bs / steady * 1e3,
+          "peak_memory_gb": peak_gb,
+          "pec_loss": [m["pec_loss"] for m in metrics],
+          "mtc_loss": [m["mtc_loss"] for m in metrics],
+          "valid_pck_mean": [a[-1] for a in accs],
+          "kernel_launches": launches, "kernel_launches_per_step": 2})
+    return launches
+
+
+def profile_steps(phase, tr, batches, sched, step_ms):
     """torch.profiler over a few more training steps (after the counted
     run): device time per step by kernel and by kind, and the device's idle
     share of the unprofiled step time `step_ms`."""
@@ -242,19 +410,19 @@ def profile_steps(tr, batches, step_ms):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tr.run_train_steps(batches)
+        tr.run_train_steps(batches, *sched)
         torch.cuda.synchronize()
     n = len(batches)
     # kernels only: user annotations ("Optimizer.step#...") also appear on
     # the device timeline, spanning their kernels and the gaps between them
-    dev = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+    dev = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and "#" not in e.key
            and not getattr(e, "is_user_annotation", False)]
     kinds = {"convolution": ("conv", "xmma", "cutlass", "gemm", "cudnn",
                              "implicit"),
              "batchnorm": ("batch_norm",),
-             "optimizer": ("multi_tensor", "foreach", "adam"),
+             "optimizer_ema": ("multi_tensor", "foreach", "adam"),
              "heatmap_synth": ("heatmap_synth",)}
     by_kind = {k: 0.0 for k in list(kinds) + ["other"]}
     for key, ms, _ in dev:
@@ -264,9 +432,10 @@ def profile_steps(tr, batches, step_ms):
         by_kind[kind] += ms
     busy_ms = sum(d[1] for d in dev)
     top = sorted(dev, key=lambda d: -d[1])[:12]
-    emit({"phase": "train_profile", "steps": n,
+    emit({"phase": phase, "steps": n,
           "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
           "idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
+          "device_kernels_per_step": sum(d[2] for d in dev),
           "device_ms_per_step_by_kind": by_kind,
           "top_kernels_ms_per_step": [[k[:100], t, c] for k, t, c in top]})
 
@@ -299,10 +468,11 @@ def main():
     smi = phase_env()
     records = {"heatmap_synth": phase_kernel_heatmap()}
     phase_reference()
-    serve_launches = phase_serve(counts)
-    train_launches = phase_train(counts)
+    paths = [phase(counts) for phase in (phase_serve, phase_train,
+                                         phase_train_mt_ubpl,
+                                         phase_train_mt)]
     for name, rec in records.items():
-        rec["launches"] = serve_launches[name] + train_launches[name]
+        rec["launches"] = sum(launches[name] for launches in paths)
         if rec["launches"] == 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
     emit({"kernels": list(records.values())})

@@ -228,6 +228,69 @@ def test_get_preds_first_max_and_mask():
     np.testing.assert_array_equal(got[0].numpy(), [[3, 2], [0, 0], [4, 3]])
 
 
+def _decode_hm(goldens, signed):
+    """decode.npz's maps; ``signed`` makes every third map all-negative, so
+    the confidence mask of get_preds matters."""
+    g = goldens("decode")
+    hm = g["hm"].copy()
+    if signed:
+        hm[:, ::3] = -np.abs(hm[:, ::3]) - 0.1
+    return hm, g["centers"], g["scales"]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_get_preds_all_matches_jax(goldens, signed):
+    """Unmasked argmax decode == the JAX package's, exactly; on the
+    all-negative maps it differs from get_preds, which gives (0, 0)."""
+    hm, _, _ = _decode_hm(goldens, signed)
+    got = HM.get_preds_all(t32(hm))
+    ref = JHM.get_preds_all(jnp.asarray(np.moveaxis(hm, 1, -1)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    masked = HM.get_preds(t32(hm))
+    live = t32(hm).amax(dim=(-2, -1)) > 0
+    assert torch.equal(masked[live], got[live])
+    assert (masked[~live] == 0).all() and (got >= 1).all()
+    assert bool((~live[:, ::3]).all()) == signed
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_refine_quarter_pixel_matches_jax(goldens, signed):
+    """Quarter-pixel refinement == the JAX package's, exactly (the shifts
+    are +-0.25 and 0.5); peaks on the border are only moved by +0.5."""
+    hm, _, _ = _decode_hm(goldens, signed)
+    hm[0, 0] = 0.0
+    hm[0, 0, 0, 5] = 1.0                         # a peak on the top border
+    preds = HM.get_preds_all(t32(hm))
+    got = HM.refine_quarter_pixel(t32(hm), preds)
+    ref = JHM.refine_quarter_pixel(jnp.asarray(np.moveaxis(hm, 1, -1)),
+                                   jnp.asarray(preds.numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got[0, 0].numpy(), [6.5, 1.5])
+    assert ((got - preds - 0.5).abs() == 0.25).any()
+
+
+@pytest.mark.parametrize("n_models", [1, 3])
+def test_decode_heatmaps_mul_matches_jax(goldens, n_models):
+    """M models' maps decoded with their mean: coords and scores equal the
+    JAX package's (coords atol 1e-4: one float32 affine; scores exact), and
+    one model gives decode_heatmaps."""
+    hm, centers, scales = _decode_hm(goldens, False)
+    rng = np.random.default_rng(2)
+    multi = np.stack([hm] + [np.roll(hm, int(s), axis=-1) * 0.9 for s in
+                             rng.integers(1, 9, n_models - 1)])
+    got = HM.decode_heatmaps_mul(t32(multi), t32(centers), t32(scales),
+                                 (64, 64))
+    ref = JHM.decode_heatmaps_mul(jnp.asarray(np.moveaxis(multi, 2, -1)),
+                                  jnp.asarray(centers), jnp.asarray(scales),
+                                  (64, 64))
+    assert got[0].shape == (n_models, 8, 9, 2) and got[1].shape == (8, 9, 2)
+    for a, b, atol in zip(got, ref, (1e-4, 1e-4, 0, 0)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol,
+                                   rtol=1e-6)
+    one = HM.decode_heatmaps(t32(hm), t32(centers), t32(scales), (64, 64))
+    assert torch.equal(got[0][0], one[0]) and torch.equal(got[2][0], one[1])
+
+
 def test_pck(goldens):
     """PCK with the -1 sentinels: errs rtol 1e-4 / atol 1e-5, accs
     rtol 1e-5 / atol 1e-6 (the JAX package's tolerances)."""

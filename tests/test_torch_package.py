@@ -40,7 +40,7 @@ def test_import_pulls_in_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ubpl_tpu'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 24 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
@@ -95,6 +95,36 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
                  inp_res=32, out_res=8, train_count=2, valid_count=2)
     with pytest.raises(RuntimeError):
         SupervisedTrainer(cfg)
+
+
+@pytest.mark.parametrize("entry", ["MTUBPLTrainer", "MeanTeacherTrainer",
+                                   "from_checkpoint"])
+def test_training_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path,
+                                                     entry):
+    """The SSL trainers and PoseEstimator.from_checkpoint raise without
+    CUDA when no device is given, and run with device="cpu"."""
+    from ubpl_torch.infer import PoseEstimator
+    from ubpl_torch.train.checkpointing import save_checkpoint
+    from ubpl_torch.train.mean_teacher import MeanTeacherTrainer
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(model="HG1", synthetic_data=True, synthetic_kps=3,
+                 inp_res=64, out_res=16, train_count=4, valid_count=2,
+                 train_bs=2, train_bs_labeled=1)
+    if entry == "from_checkpoint":
+        from ubpl_torch.models import create_pose_model
+        net = create_pose_model("HG1", 3)
+        save_checkpoint(str(tmp_path), 0, {"model_state": net.state_dict()},
+                        is_best=True)
+        make = lambda **kw: PoseEstimator.from_checkpoint(  # noqa: E731
+            str(tmp_path), model="HG1", kps_count=3, **kw)
+    else:
+        cls = {"MTUBPLTrainer": MTUBPLTrainer,
+               "MeanTeacherTrainer": MeanTeacherTrainer}[entry]
+        make = lambda **kw: cls(cfg, **kw)  # noqa: E731
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
 
 
 def test_dtype_policy():

@@ -254,7 +254,7 @@ def test_supervised_trainer_cpu(monkeypatch):
                  label_ratio=1.0, train_bs=BS, infer_bs=BS,
                  compute_dtype="float32")
     tr = SupervisedTrainer(cfg, device="cpu")
-    losses = tr.train_epoch()
+    losses = tr.train_epoch(0)
     assert len(calls) == 2 and np.isfinite(losses["pec_loss"])
     preds, accs, errs = tr.validate()
     assert len(preds[0]) == 5 and len(accs[0]) == K + 1

@@ -15,9 +15,12 @@ staging overlaps device compute.
                                               model="HG3", kps_count=9)
     kps, scores = est.predict(images_u8)
 
-``from_checkpoint`` (the JAX package's own checkpoint format) is not
-ported yet.
+``from_checkpoint`` serves a checkpoint that one of the port's trainers
+wrote under its ``base_path`` (``train/checkpointing.py``; the same
+reference layout, so it goes through the same loader).
 """
+import os
+
 import numpy as np
 import torch
 
@@ -25,6 +28,7 @@ from .config import Config
 from .device import memory_format, resolve_device
 from .models import create_pose_model
 from .models.weights import load_reference_checkpoint, load_state
+from .train.checkpointing import checkpoint_paths
 from .train.common import predict_keypoints
 
 
@@ -42,6 +46,22 @@ class PoseEstimator:
         self.means = torch.as_tensor(means, dtype=torch.float32,
                                      device=self.device)
         self._staging = [None, None]
+
+    @classmethod
+    def from_checkpoint(cls, base_path, model="HG3", kps_count=9,
+                        feature_mode="AvgPool", means=(0., 0., 0.),
+                        head="ema", branch: int = 0, best=True,
+                        batch_size: int = 32, device=None, **cfg_kw):
+        """Serve a trainer's checkpoint (any regime) from its ``base_path``
+        (``ubpl_tpu/infer.py:59-89``).  head="ema" prefers the EMA teacher
+        where the regime has one; branch (0-based) selects the ensemble
+        member; best=True reads ``checkpoint_best.pth.tar``."""
+        path = checkpoint_paths(base_path)[1 if best else 0]
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint under {base_path}")
+        return cls.from_torch_checkpoint(
+            path, model, kps_count, feature_mode, means, head, branch + 1,
+            batch_size, device, **cfg_kw)
 
     @classmethod
     def from_torch_checkpoint(cls, path, model="HG3", kps_count=9,

@@ -10,6 +10,9 @@ reference keys (``pre.*``, ``hgs.{i}.0.*``, ``features.{i}.*``,
   * ``state_dict_from_jax`` turns the JAX package's nested flax dicts
     (numpy arrays under flax auto-names) into a port ``state_dict``,
     conv kernels HWIO -> OIHW;
+  * ``branch_state_dicts_from_jax`` does so for a whole student/teacher
+    trainer state (``DualState`` with its stacked branch axis, or
+    ``MTState``), one ``state_dict`` per network;
   * ``load_reference_checkpoint`` reads a reference ``.pth.tar`` and drops
     what the port does not have: the never-run same-width ``skip_layer``
     convs and ``num_batches_tracked``.
@@ -111,6 +114,31 @@ def state_dict_from_jax(params, batch_stats, n_stack, mode="AvgPool"):
             w = np.transpose(w, (3, 2, 0, 1))   # HWIO -> OIHW
         sd[tkey] = torch.from_numpy(np.ascontiguousarray(w))
     return sd
+
+
+def branch_state_dicts_from_jax(state, n_stack, mode="AvgPool",
+                                n_branch=None):
+    """A JAX-package student/teacher trainer state -> port state_dicts.
+
+    state: an object with ``params``, ``batch_stats``, ``ema_params`` and
+    ``ema_batch_stats`` trees of numpy arrays: ``DualState`` (every leaf
+    with a leading branch axis of size ``n_branch``) or ``MTState``
+    (``n_branch=None``: no branch axis, one network).
+    Returns (student state_dicts, teacher state_dicts), one per branch.
+    """
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree) if i is None else np.asarray(tree)[i]
+
+    students, teachers = [], []
+    for i in ([None] if n_branch is None else range(n_branch)):
+        students.append(state_dict_from_jax(
+            take(state.params, i), take(state.batch_stats, i), n_stack, mode))
+        teachers.append(state_dict_from_jax(
+            take(state.ema_params, i), take(state.ema_batch_stats, i),
+            n_stack, mode))
+    return students, teachers
 
 
 def checkpoint_state_key(keys, branch=1, head="ema"):

@@ -4,7 +4,9 @@ construction with target synthesis, forward, validation step.
 Port of ``ubpl_tpu/train/common.py``: the whole dataset lives on the device
 as uint8 (``:20-44``); each step gathers its batch by index and builds its
 view there — flip/noise/affine, colour normalisation, then the Gaussian
-targets through the Triton kernel (``make_view``, ``:60-103``).
+targets through the Triton kernel (``make_view``, ``:60-103``).  The
+sample weights and the multi-head validation step of
+``ubpl_tpu/train/base_trainer.py`` are here too, as plain functions.
 
 Images of a view are NCHW float32; on the card they are handed to the model
 in ``channels_last`` memory (``device.memory_format``).
@@ -143,15 +145,41 @@ def predict_keypoints(model, images_u8, means, cfg):
                               res=(cfg.out_res, cfg.out_res))
 
 
+def sample_weights(islabeled, pseudo_weight):
+    """Reference ProjectTools weights (projects/tools.py:14-54;
+    ``ubpl_tpu/train/base_trainer.py:840-848``): pos (labeled 1, else 0),
+    nega (unlabeled pseudo_weight, else 0), cons (labeled 1, unlabeled
+    pseudo_weight)."""
+    lab = (islabeled > 0).to(torch.float32)
+    return lab, (1.0 - lab) * pseudo_weight, lab + (1.0 - lab) * pseudo_weight
+
+
 @torch.inference_mode()
-def validate_batch(model, images_u8, kps, means, cfg):
-    """Validation step: predict, then PCK (reference utils/evaluation.py:
-    92-115).  Returns (coords, scores, errs [K+1], accs [K+1])."""
-    coords, scores = predict_keypoints(model, images_u8, means, cfg)
-    errs, accs = PCK.acc_pck(coords, kps,
-                             tuple(int(i) for i in cfg.pck_ref),
-                             float(cfg.pck_thr))
-    return coords, scores, errs, accs
+def validate_heads_batch(models, images_u8, kps, means, cfg, with_mean):
+    """Validation step over several heads (``ubpl_tpu/train/base_trainer.
+    py:554-584``): eval forward of every model on the same batch, last
+    stack, ``decode_heatmaps_mul``, the mean of the heads' coordinates
+    appended as one more head when ``with_mean``, then PCK per head
+    (reference utils/evaluation.py:92-115).
+
+    Returns (coords [M', B, K, 2], errs [M', K+1], accs [M', K+1]) with
+    M' = len(models) + with_mean.
+    """
+    B, dev = images_u8.shape[0], images_u8.device
+    imgs = A.color_normalize(images_to_float(images_u8), means)
+    last = torch.stack([
+        forward_heatmaps(m, imgs, False, cfg.compute_dtype)[0][:, -1]
+        for m in models])                                # [M, B, K, H, W]
+    center = torch.full((B, 2), float(cfg.inp_res // 2), device=dev)
+    scale = torch.full((B,), cfg.inp_res / 200.0, device=dev)
+    coords, coords_mean, _, _ = HM.decode_heatmaps_mul(
+        last, center, scale, (cfg.out_res, cfg.out_res))
+    if with_mean:
+        coords = torch.cat([coords, coords_mean[None]], 0)
+    pck_ref = tuple(int(i) for i in cfg.pck_ref)
+    pck = [PCK.acc_pck(c, kps, pck_ref, float(cfg.pck_thr)) for c in coords]
+    return (coords, torch.stack([e for e, _ in pck]),
+            torch.stack([a for _, a in pck]))
 
 
 def update_pck_counters(acc_counters, err_counters, accs, errs, bs, k):

@@ -10,10 +10,9 @@ device, with no host sync.
 import torch
 
 from ..data.sampler import supervised_epoch_batches
-from ..ops import augment as A
 from . import losses as L
 from .base_trainer import BaseTrainer
-from .common import forward_heatmaps, make_view
+from .common import forward_heatmaps
 
 
 def supervised_step(model, optimizer, view, cfg):
@@ -31,21 +30,21 @@ def supervised_step(model, optimizer, view, cfg):
 
 class SupervisedTrainer(BaseTrainer):
     regime = "Supervised"
+    valid_heads = ("model",)
 
     def _setup_model(self):
         cfg = self.cfg
         self.model = self._make_model()
+        self.networks = {"model_state": self.model}
         # wd passed explicitly: Config's is 0.0, torch's AdamW default 0.01
         self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr,
                                            weight_decay=cfg.wd)
 
     def train_step(self, idxs):
-        imgs, kps, _ = self.fetch_batch(self.train_data, idxs)
-        draws = A.draw_augment(len(idxs), self.generator, self.device)
-        view = make_view(imgs, kps, self.means, self.cfg, draws)
+        (view,), _ = self.make_views(idxs, 1)
         return supervised_step(self.model, self.optimizer, view, self.cfg)
 
-    def train_epoch(self):
+    def train_epoch(self, epo, schedules=None):
         counter = L.AvgCounter()
         metrics = self.run_train_steps(supervised_epoch_batches(
             self.labeled_idxs, self.cfg.train_bs, self.rng))
@@ -54,5 +53,4 @@ class SupervisedTrainer(BaseTrainer):
         return {"pec_loss": counter.avg}
 
     def validate(self):
-        preds, accs, errs = self.validate_model(self.model)
-        return [preds], [accs], [errs]
+        return self._validate_heads([self.model], False)
