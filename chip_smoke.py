@@ -17,9 +17,21 @@ width through their user entry points:
     per step — then validates its three heads, writes a checkpoint and
     serves it through ``PoseEstimator.from_checkpoint``; a few more steps
     run with ``remat`` for its memory and time;
-  * train_mt: ``MeanTeacherTrainer``, same shape, 4 steps and a validation.
+  * train_mt: ``MeanTeacherTrainer``, same shape, 4 steps and a validation;
+  * data_disk: writes a Mouse tree in the reference layout (320 PNG crops of
+    320x240, 9 keypoints each, under ``chiprun_out/smoke_data``, removed at
+    the end) with the port's ``write_png``, and times ``get_semi_data`` +
+    ``materialize`` and the PNG decode per image;
+  * cli_dualpose_ubpl: ``python -m ubpl_torch dualpose_ubpl`` in-process
+    (``ubpl_torch.__main__.main``) on that tree: HG3 at its published
+    widths, K=9, 256->64, bf16, bs 32 = 16 + 16, 256 training and 64
+    validation images, 2 epochs with a profiler trace of the first; two
+    heatmap-kernel launches per step, the run's artifacts, and its
+    checkpoint served by ``PoseEstimator.from_checkpoint``;
+  * cli_exec_quick: ``python -m ubpl_torch exec --quick`` on the same tree:
+    all five regimes, 2 epochs each, HG2 (the depth cut), 24 images.
 
-The training phases are each followed by a ``torch.profiler`` window over a
+The SSL training phases are followed by a ``torch.profiler`` window over a
 few more steps (device busy time, idle share, device time by kind).
 
 It also runs the port's HG2 on the reference golden
@@ -30,10 +42,14 @@ the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0,
 no result line).  Without CUDA it exits 2 before doing anything.
 
-Build outputs (Triton cache, the smoke checkpoint) go to ``.kernel_build/``.
+Build outputs (Triton cache, the compiled PNG unfilter, the smoke
+checkpoints, the CLI runs and their trace) go to ``.kernel_build/``.
 """
+import contextlib
+import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,6 +59,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, ".kernel_build")
+SMOKE_DATA = os.path.join(REPO, "chiprun_out", "smoke_data")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 
@@ -229,6 +246,16 @@ def timed_steps(tr, batches, sched, launches_per_step, done=0):
             raise AssertionError(f"heatmap kernel launched {HS.launches} "
                                  f"times in {done + i + 1} steps")
     return step_ms, metrics
+
+
+def timed_steps_ms(tr, idxs, sched):
+    """Host time of one training step, synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run_train_steps([idxs], *sched)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def assert_finite(what, *values):
@@ -439,6 +466,266 @@ def profile_steps(phase, tr, batches, sched, step_ms):
           "device_ms_per_step_by_kind": by_kind,
           "top_kernels_ms_per_step": [[k[:100], t, c] for k, t, c in top]})
 
+def make_mouse_tree(root, n=320, w=320, h=240, k=9, seed=0):
+    """A Mouse dataset in the reference layout under ``root``:
+    pose/mouse/croppeds_bbox/{labels_normal.json, images/*.png}; smooth
+    synthetic crops with mild noise, keypoints inside the image."""
+    from ubpl_torch.data.native_io import write_png
+    base = os.path.join(root, "pose", "mouse", "croppeds_bbox")
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    anns = []
+    for i in range(n):
+        phase = rng.uniform(0, 6.3, 3)
+        img = np.stack([96 + 64 * np.sin(xx / (17 + 3 * c) + phase[c])
+                        + 48 * np.cos(yy / (11 + 2 * c)) for c in range(3)],
+                       -1) + rng.integers(0, 8, (h, w, 3))
+        write_png(os.path.join(base, "images", f"im{i:04d}.png"),
+                  np.clip(img, 0, 255).astype(np.uint8))
+        anns.append({"imageID": f"im{i:04d}",
+                     "kps": np.stack([rng.uniform(4, w - 4, k),
+                                      rng.uniform(4, h - 4, k)], -1).tolist()})
+    with open(os.path.join(base, "labels_normal.json"), "w") as f:
+        json.dump(anns, f)
+
+
+def phase_data_disk():
+    """Write the smoke's Mouse tree, then time the data layer on it: the
+    PNG decode per image (compiled unfilter; the plain Python version on a
+    few images) and get_semi_data + materialize of the 256 + 64 split."""
+    from ubpl_torch.data import native_io as N
+    from ubpl_torch.data.arrays import materialize
+    from ubpl_torch.data.sources import get_datasource
+    shutil.rmtree(SMOKE_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_mouse_tree(SMOKE_DATA)
+    write_s = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(
+        SMOKE_DATA, "pose", "mouse", "croppeds_bbox", "images", "*.png")))
+    compiled = N._build_unfilter() is not None
+    if not compiled:
+        raise AssertionError("no C++ compiler for the PNG unfilter")
+    t0 = time.perf_counter()
+    for p in paths:
+        img = N.imread_bgr(p)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    if img.shape != (240, 320, 3):
+        raise AssertionError(f"decoded shape {img.shape}")
+    lib, N._lib = N._lib, False          # the plain Python unfilter
+    try:
+        t0 = time.perf_counter()
+        for p in paths[:4]:
+            plain = N.imread_bgr(p)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 4
+    finally:
+        N._lib = lib
+    if not np.array_equal(plain, N.imread_bgr(paths[3])):
+        raise AssertionError("plain and compiled PNG unfilter differ")
+    cache = os.path.join(BUILD, "smoke_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds = get_datasource("Mouse", data_root=SMOKE_DATA, cache_dir=cache,
+                        seed=1388)
+    semi = ds.get_semi_data(256, 64, 0.5)
+    t1 = time.perf_counter()
+    arrays = [materialize(r, 256, 16, ds.image_cache)
+              for r in (semi.semi_train, semi.valid)]
+    t2 = time.perf_counter()
+    n = sum(len(a.images) for a in arrays)
+    if n != 320 or arrays[0].images.shape[1:] != (256, 256, 3):
+        raise AssertionError(f"materialized {n} images")
+    xy = arrays[0].kps_test[..., :2]
+    if not (0 < xy.min() and xy.max() < 256):
+        raise AssertionError("resized keypoints leave the image")
+    emit({"phase": "data_disk", "images": n, "image_wh": [320, 240],
+          "write_s": write_s, "png_decode_ms_per_image": decode_ms,
+          "png_decode_plain_ms_per_image": plain_ms,
+          "unfilter_compiled": compiled,
+          "get_semi_data_ms": (t1 - t0) * 1e3,
+          "materialize_ms": (t2 - t1) * 1e3,
+          "load_ms_per_image": (t2 - t0) * 1e3 / n,
+          "means": semi.means, "stds": semi.stds})
+
+
+@contextlib.contextmanager
+def observe(*classes):
+    """Wrap each class's ``train_step``: the host time of every step,
+    synchronised before and after, and the last trainer seen."""
+    import torch
+    seen = {"steps": [], "trainer": None}
+    real = {cls: cls.__dict__.get("train_step") for cls in classes}
+
+    def wrap(cls, fn):
+        def train_step(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            torch.cuda.synchronize()
+            seen["steps"].append((cls.regime, (time.perf_counter() - t0) * 1e3))
+            seen["trainer"] = self
+            return out
+        return train_step
+
+    for cls, fn in real.items():
+        cls.train_step = wrap(cls, fn or getattr(cls, "train_step"))
+    try:
+        yield seen
+    finally:
+        for cls, fn in real.items():
+            if fn is None:
+                del cls.train_step
+            else:
+                cls.train_step = fn
+
+
+def cli_run_dir(root):
+    (path,) = glob.glob(os.path.join(root, "*"))
+    return path
+
+
+def phase_cli_dualpose_ubpl(counts):
+    """This slice's path through the user's entry point, at full width on
+    the smoke's Mouse tree: 2 epochs of DualPose_UBPL (8 steps each), the
+    first under the run's own profiler trace."""
+    import torch
+    from ubpl_torch.__main__ import main
+    from ubpl_torch.infer import PoseEstimator
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.dualpose_ubpl import DualPoseUBPLTrainer
+    exp = os.path.join(BUILD, "cli_dualpose_ubpl")
+    trace_dir = os.path.join(BUILD, "cli_dualpose_ubpl_trace")
+    for d in (exp, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["dualpose_ubpl", "--data_source=Mouse",
+            f"--data_root={SMOKE_DATA}", "--train_count=256",
+            "--valid_count=64", "--label_ratio=0.5", "--train_bs=32",
+            "--train_bs_labeled=16", "--infer_bs=32", "--model=HG3",
+            "--epochs=2", "--compute_dtype=bfloat16",
+            f"--experiment_root={exp}", f"--profile_dir={trace_dir}",
+            f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    with observe(DualPoseUBPLTrainer) as seen:
+        rc = main(argv)
+    run_s = time.perf_counter() - t0
+    launches = counts.read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    step_ms = [t for _, t in seen["steps"]]
+    if len(step_ms) != 16:
+        raise AssertionError(f"{len(step_ms)} steps, not 2 epochs of 8")
+    if launches[HS.NAME] != 2 * len(step_ms):
+        raise AssertionError(f"heatmap kernel launched {launches[HS.NAME]} "
+                             f"times in {len(step_ms)} steps")
+    base = cli_run_dir(exp)
+    for rel in ("ckpts/checkpoint.pth.tar", "ckpts/checkpoint_best.pth.tar",
+                "logs/args.json", "logs/logData/logData_1.json",
+                "logs/logData/logData_2.json", "logs/report.csv"):
+        if not os.path.isfile(os.path.join(base, rel)):
+            raise AssertionError(f"missing artifact {rel}")
+    logs = []
+    for e in (1, 2):
+        with open(os.path.join(base, f"logs/logData/logData_{e}.json")) as f:
+            logs.append(json.load(f))
+    for log in logs:
+        assert_finite("logged loss/PCK", *log.values())
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{len(traces)} trace files")
+    tr = seen["trainer"]
+    cfg = tr.cfg
+    est = PoseEstimator.from_checkpoint(
+        base, model=cfg.model, kps_count=cfg.kps_count,
+        means=tuple(tr.means.tolist()), batch_size=32,
+        compute_dtype=cfg.compute_dtype, inp_res=cfg.inp_res,
+        out_res=cfg.out_res)
+    kps, scores = est.predict(tr.valid_data.images[:8].cpu().numpy())
+    if kps.shape != (8, cfg.kps_count, 2):
+        raise AssertionError(f"served shape {kps.shape}")
+    assert_finite("served keypoints", kps, scores)
+    steady = statistics.median(step_ms[9:])     # epoch 2: no trace
+    # the same trainer once more, outside main(): 8 steps of a fresh epoch
+    # (not counted as the path's launches; the profile window follows)
+    sched = tuple(tr.epoch_schedules(1).values())
+    more = [timed_steps_ms(tr, batch, sched)
+            for batch in list(tr.make_sampler())[:8]]
+    emit({"phase": "cli_dualpose_ubpl", "regime": "DualPose_UBPL",
+          "model": cfg.model, "dtype": cfg.compute_dtype,
+          "train_bs": cfg.train_bs, "train_bs_labeled": cfg.train_bs_labeled,
+          "inp_res": cfg.inp_res, "out_res": cfg.out_res,
+          "kps": cfg.kps_count, "train_count": cfg.train_count,
+          "valid_count": cfg.valid_count, "epochs": cfg.epochs,
+          "run_s": run_s, "step_ms": step_ms,
+          "steady_step_ms_median": steady,
+          "images_per_s": cfg.train_bs / steady * 1e3,
+          "after_run_step_ms": more,
+          "after_run_steady_step_ms_median": statistics.median(more[1:]),
+          "peak_memory_gb": peak_gb,
+          "trace_mb": os.path.getsize(traces[0]) / 1e6,
+          "losses": {k: v for k, v in logs[-1].items()
+                     if k not in ("accs", "errs")},
+          "valid_pck_mean": [a[-1] for a in logs[-1]["accs"]],
+          "served_images": 8, "kernel_launches": launches,
+          "kernel_launches_per_step": 2})
+    profile_steps("cli_dualpose_ubpl_profile", tr,
+                  list(tr.make_sampler())[:3], sched, steady)
+    return launches
+
+
+def phase_cli_exec_quick(counts):
+    """``exec --quick``: every CLI regime once on the card (HG2, 2 epochs,
+    24 training images at the source's 256 -> 64)."""
+    import torch
+    from ubpl_torch.__main__ import main
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.dualpose_ubpl import DualPoseUBPLTrainer
+    from ubpl_torch.train.mean_teacher import MeanTeacherTrainer
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    from ubpl_torch.train.supervised import SupervisedTrainer
+    exp = os.path.join(BUILD, "cli_exec_quick")
+    shutil.rmtree(exp, ignore_errors=True)
+    counts.reset()
+    t0 = time.perf_counter()
+    with observe(SupervisedTrainer, MeanTeacherTrainer, MTUBPLTrainer,
+                 DualPoseUBPLTrainer) as seen:
+        rc = main(["exec", "--quick", f"--data_root={SMOKE_DATA}",
+                   f"--experiment_root={exp}",
+                   f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts.read()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    runs = sorted(os.listdir(exp))
+    if len(runs) != 5:
+        raise AssertionError(f"{len(runs)} runs: {runs}")
+    per_regime = {}
+    for regime, ms in seen["steps"]:
+        per_regime.setdefault(regime, []).append(ms)
+    want = sum(len(v) * (1 if r == "Supervised" else 2)
+               for r, v in per_regime.items())
+    if launches[HS.NAME] != want or want == 0:
+        raise AssertionError(f"heatmap kernel launched {launches[HS.NAME]} "
+                             f"times, expected {want}")
+    results = {}
+    for run in runs:
+        base = os.path.join(exp, run)
+        with open(os.path.join(base, "logs", "logData", "logData_2.json")) as f:
+            log = json.load(f)
+        assert_finite(f"{run} logged loss/PCK", *log.values())
+        if not os.path.isfile(os.path.join(base, "logs", "report.csv")):
+            raise AssertionError(f"{run}: no report")
+        results[run.rsplit("_", 1)[0]] = [a[-1] for a in log["accs"]]
+    emit({"phase": "cli_exec_quick", "runs": len(runs), "run_s": run_s,
+          "steps": {r: len(v) for r, v in per_regime.items()},
+          "median_step_ms": {r: statistics.median(v)
+                             for r, v in per_regime.items()},
+          "valid_pck_mean": results, "kernel_launches": launches})
+    return launches
+
 
 class Counts:
     """Reset and read the launch counters of every port kernel."""
@@ -471,6 +758,12 @@ def main():
     paths = [phase(counts) for phase in (phase_serve, phase_train,
                                          phase_train_mt_ubpl,
                                          phase_train_mt)]
+    try:
+        phase_data_disk()
+        paths += [phase_cli_dualpose_ubpl(counts),
+                  phase_cli_exec_quick(counts)]
+    finally:
+        shutil.rmtree(SMOKE_DATA, ignore_errors=True)
     for name, rec in records.items():
         rec["launches"] = sum(launches[name] for launches in paths)
         if rec["launches"] == 0:

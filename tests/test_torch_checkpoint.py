@@ -278,9 +278,18 @@ def test_from_checkpoint_heads_and_best(run2):
     ("torch_init", "ref.pth.tar")])
 def test_unported_config_raises(field, value):
     """What the JAX package's loop does and the port does not do yet is
-    refused, not ignored."""
-    with pytest.raises(NotImplementedError, match=field):
-        MTUBPLTrainer(Config(**{**KW, field: value}), device="cpu")
+    refused, not ignored.  debug, profile_dir and torch_init are ported
+    now: the first two are accepted, and torch_init reads its file (a
+    missing one raises FileNotFoundError)."""
+    cfg = Config(**{**KW, field: value})
+    if field == "torch_init":
+        with pytest.raises(FileNotFoundError, match=value):
+            MTUBPLTrainer(cfg, device="cpu")
+    elif field in ("debug", "profile_dir"):
+        assert getattr(MTUBPLTrainer(cfg, device="cpu").cfg, field) == value
+    else:
+        with pytest.raises(NotImplementedError, match=field):
+            MTUBPLTrainer(cfg, device="cpu")
 
 
 def test_unknown_optimizer_raises():

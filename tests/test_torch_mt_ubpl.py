@@ -9,9 +9,14 @@ sides (heatmaps and losses are float32 on both, as ``forward_heatmaps``
 casts them): at this size the train-mode network is ill-conditioned in
 float32 (ROADMAP C.3).
 
+Both sides start from the port's initialisation of branch i from
+``seed + i``, carried into the JAX trainer through
+``ubpl_tpu.models.torch_import.import_hourglass`` in place of its flax init
+(which would only add an XLA compile of the init program, ~20 s, to this
+file).
+
 The views are built on the JAX side with the keys the trainer's step uses
-(``fold_in(fold_in(PRNGKey(seed), step_num), a)``), because the JAX
-training warp and the port's differ by a sub-pixel shift and ``jax.random``
+(``fold_in(fold_in(PRNGKey(seed), step_num), a)``), because ``jax.random``
 is not a ``torch.Generator``.  The step is then handed exactly those arrays
 (``make_view`` as seen by ``ubpl_tpu.train.mt_ubpl`` returns them): XLA's
 warp inside the jitted step differs from the same warp outside it by 1e-5
@@ -63,15 +68,36 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _port_init_stacked(model, rngs, sample_input, train=True):
+    """Stand-in for ``ubpl_tpu.models.factory.init_model_stacked``: the
+    port's branch i (``torch.manual_seed(seed + i)``) as flax trees with a
+    leading branch axis."""
+    from ubpl_tpu.models.torch_import import import_hourglass
+    trees = []
+    for i in range(len(rngs)):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(KW["seed"] + i)
+            net = create_pose_model(KW["model"], K)
+        sd = {k: v.numpy() for k, v in net.state_dict().items()}
+        trees.append(import_hourglass(sd, 2))
+    return jax.tree_util.tree_map(lambda *x: np.stack(x), *trees)
+
+
 @pytest.fixture(scope="module")
 def ref():
     """JAX package: the real MTUBPLTrainer, its views, one train_step in
     float64; everything returned as numpy."""
+    import ubpl_tpu.train.base_trainer as JB
     import ubpl_tpu.train.mt_ubpl as JM
     from ubpl_tpu.config import Config as JConfig
     from ubpl_tpu.train.common import ViewBatch, make_view
 
-    trainer = JM.MTUBPLTrainer(JConfig(**KW))
+    real_init = JB.init_model_stacked
+    JB.init_model_stacked = _port_init_stacked
+    try:
+        trainer = JM.MTUBPLTrainer(JConfig(**KW))
+    finally:
+        JB.init_model_stacked = real_init
     cfg = trainer.cfg
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     rng = np.random.default_rng(5)

@@ -99,24 +99,74 @@ def _warp_inputs(images, seed, sf=0.25, rf=30.0):
     return mats
 
 
+def _gather_training_convention(imgs, mats, out_res):
+    """JAX's exact gather sampler (``grid_sample_bilinear``, the core of
+    ``warp_images_affine_gather``) at the training warp's source positions:
+    output pixel p at ``inv(mat) @ (p - 1) + 1``, with the offsets folded
+    in float32 as JAX's ``warp_images_affine`` folds them."""
+    inv = JT.invert_affine3(jnp.asarray(mats))
+    m00, m01, m02 = inv[:, 0, 0], inv[:, 0, 1], inv[:, 0, 2]
+    m10, m11, m12 = inv[:, 1, 0], inv[:, 1, 1], inv[:, 1, 2]
+    c0 = m02 - m00 - m01 + 1.0
+    c1 = m12 - m10 - m11 + 1.0
+    r = jnp.arange(out_res, dtype=jnp.float32)
+    ys, xs = r[:, None], r[None, :]
+    sx = (m00[:, None, None] * xs + m01[:, None, None] * ys
+          + c0[:, None, None])
+    sy = (m10[:, None, None] * xs + m11[:, None, None] * ys
+          + c1[:, None, None])
+    return jax.vmap(JT.grid_sample_bilinear)(jnp.asarray(imgs), sx, sy)
+
+
 def test_warp_matches_jax_gather():
     """Exact bilinear warp with zero padding (grid_sample, align_corners)
-    against JAX warp_images_affine_gather: atol 1e-5 on noise images."""
+    against JAX's gather warp sampler at the training path's 1-indexed
+    source positions: atol 1e-5 on noise images."""
     rng = np.random.default_rng(0)
     imgs = rng.uniform(0, 1, (3, 64, 64, 3)).astype(np.float32)
     mats = _warp_inputs(imgs, 1)
-    ref = JT.warp_images_affine_gather(jnp.asarray(imgs), jnp.asarray(mats),
-                                       64)
+    ref = _gather_training_convention(imgs, mats, 64)
     got = T.warp_images_affine(t32(nchw(imgs)), t32(mats), 64)
     np.testing.assert_allclose(got.numpy(), nchw(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("scale,angle", [(1.0, 0.0), (0.75, 0.0),
+                                         (1.25, 0.0), (1.0, 30.0),
+                                         (0.8, -20.0), (1.1, 10.0)])
+def test_warp_matches_jax_training_warp(scale, angle):
+    """The port's warp against the JAX training path's warp_images_affine
+    (two-pass tent matmul) on affine ramp images, where bilinear and
+    two-pass linear interpolation are both exact: interior pixels (source
+    within [1, R-2]) to 1e-4.  The port's former convention, sampling at
+    ``inv @ p`` (the gather warp's), fails this by up to 5.2e-3 on these
+    ramps (a 0.25-0.6 px shift at 0.01 per px) at every case but
+    (1.0, 0.0)."""
+    R = 64
+    yy, xx = np.mgrid[0:R, 0:R].astype(np.float32)
+    img = np.stack([0.01 * xx + 0.003 * yy, 0.5 - 0.004 * xx + 0.006 * yy,
+                    0.2 + 0.002 * xx], -1)[None]
+    mats = np.asarray(JT.affine_warp_matrix(
+        jnp.full((1, 2), R // 2, jnp.float32),
+        jnp.asarray([R / 200 * scale], jnp.float32),
+        jnp.asarray([angle], jnp.float32), (R, R)))
+    ref = np.asarray(JT.warp_images_affine(jnp.asarray(img),
+                                           jnp.asarray(mats), R))[0]
+    got = T.warp_images_affine(t32(nchw(img)), t32(mats), R).numpy()[0]
+    inv = np.linalg.inv(mats[0].astype(np.float64))
+    ys, xs = np.mgrid[0:R, 0:R] - 1.0
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2] + 1
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2] + 1
+    interior = (sx >= 1) & (sx <= R - 2) & (sy >= 1) & (sy <= R - 2)
+    assert interior.sum() > R * R / 2
+    np.testing.assert_allclose(np.moveaxis(got, 0, -1)[interior],
+                               ref[interior], atol=1e-4)
+
+
 def test_warp_near_jax_two_pass():
-    """Against the JAX training path's two-pass tent-matmul warp (a TPU
-    lowering device, not a parity target): the two place pixel centres
-    differently (inv @ p vs inv @ (p-1) + 1), a sub-pixel shift.  On a
-    smooth 256^2 image with a moderate crop/rotation the mean gap stays
-    within the 0.002 recorded in docs/PERF.md "Warp optimization detail"."""
+    """Against the JAX training path's two-pass tent-matmul warp on a
+    smooth 256^2 image with a moderate crop/rotation, borders included:
+    the mean gap stays within the 0.002 recorded in docs/PERF.md "Warp
+    optimization detail"."""
     R = 256
     yy, xx = np.mgrid[0:R, 0:R] / R
     blob = np.exp(-((xx - 0.5) ** 2 + (yy - 0.5) ** 2) / 0.1)
@@ -325,8 +375,9 @@ def test_augment_apply_matches_jax(use_flip):
     """The port's apply step fed JAX's draws reproduces JAX augment_batch:
     keypoints, centres, flips exact; scale/angle/warpmat at float32
     rounding (rtol 1e-6).  JAX warps with its two-pass TPU lowering, so the
-    images are held to the same chain with the exact gather warp
-    (flip -> noise -> warp_images_affine_gather) at atol 1e-5."""
+    images are held to the same chain with JAX's exact gather sampler at
+    the training path's source positions (flip -> noise -> gather) at
+    atol 1e-5."""
     B, R, K = 4, 64, 5
     rng = np.random.default_rng(5)
     imgs = rng.uniform(0, 1, (B, R, R, 3)).astype(np.float32)
@@ -355,7 +406,7 @@ def test_augment_apply_matches_jax(use_flip):
         x, _, c, _ = JA.random_flip(r_flip, x, jnp.asarray(kps), c)
     x = JA.noisy_mean(r_noise, x)
     mat = JT.affine_warp_matrix(c, ref.scale, ref.angle, (R, R))
-    x = JT.warp_images_affine_gather(x, mat, R)
+    x = _gather_training_convention(x, mat, R)
     np.testing.assert_allclose(got.images.numpy(), nchw(x), atol=1e-5)
 
 

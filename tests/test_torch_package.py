@@ -2,6 +2,7 @@
 ``ubpl_tpu``), runs on the card unless told otherwise, and configures like
 the JAX package."""
 import dataclasses
+import json
 import os
 import pkgutil
 import re
@@ -40,11 +41,48 @@ def test_import_pulls_in_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ubpl_tpu'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 24 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 43 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+NEW_MODULES = ["__main__", "data.arrays", "data.base", "data.native_io",
+               "data.occluders", "data.preview", "data.sources",
+               "train.dualpose_ubpl", "train.exec", "utils.draw",
+               "utils.preemption", "utils.profiling", "utils.report",
+               "utils.xlsx"]
+
+
+@pytest.fixture(scope="module")
+def loaded_by():
+    """In one fresh interpreter: the top-level packages that importing each
+    entry-path module (in NEW_MODULES order) loaded."""
+    code = (
+        "import importlib, json, sys\n"
+        f"names = {NEW_MODULES!r}\n"
+        "out = {}\n"
+        "for n in names:\n"
+        "    before = set(sys.modules)\n"
+        "    importlib.import_module('ubpl_torch.' + n)\n"
+        "    out[n] = sorted({k.split('.')[0] for k in sys.modules"
+        " if k not in before})\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_entry_path_module_imports_no_jax(loaded_by, name):
+    """Each module of the entry-point path loads neither jax nor ubpl_tpu,
+    nor the image libraries the card machine lacks (cv2, PIL: imported
+    only where a JPEG is read)."""
+    bad = {"jax", "jaxlib", "flax", "optax", "ubpl_tpu", "cv2", "PIL"}
+    assert not bad & set(loaded_by[name])
 
 
 def test_sources_import_no_jax():
@@ -98,13 +136,14 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["MTUBPLTrainer", "MeanTeacherTrainer",
-                                   "from_checkpoint"])
+                                   "DualPoseUBPLTrainer", "from_checkpoint"])
 def test_training_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path,
                                                      entry):
     """The SSL trainers and PoseEstimator.from_checkpoint raise without
     CUDA when no device is given, and run with device="cpu"."""
     from ubpl_torch.infer import PoseEstimator
     from ubpl_torch.train.checkpointing import save_checkpoint
+    from ubpl_torch.train.dualpose_ubpl import DualPoseUBPLTrainer
     from ubpl_torch.train.mean_teacher import MeanTeacherTrainer
     from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -120,7 +159,8 @@ def test_training_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path,
             str(tmp_path), model="HG1", kps_count=3, **kw)
     else:
         cls = {"MTUBPLTrainer": MTUBPLTrainer,
-               "MeanTeacherTrainer": MeanTeacherTrainer}[entry]
+               "MeanTeacherTrainer": MeanTeacherTrainer,
+               "DualPoseUBPLTrainer": DualPoseUBPLTrainer}[entry]
         make = lambda **kw: cls(cfg, **kw)  # noqa: E731
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()

@@ -6,8 +6,9 @@ configures the port unchanged.
 
 Fields that steer only the XLA/TPU lowering (``unroll_branches``,
 ``scan_branches``, ``scan_batches``, ``donate_state``,
-``fuse_teacher_forward``, ``mesh_shape``/``mesh_axes``, ``io_workers``) are
-accepted and ignored: they leave the math unchanged.
+``fuse_teacher_forward``, ``mesh_shape``/``mesh_axes``) are accepted and
+ignored: they leave the math unchanged.  ``io_workers`` sets the host
+decode threads of ``data.arrays``.
 """
 import dataclasses
 import json
@@ -113,7 +114,7 @@ class Config:
     scan_batches: int = 1
     unroll_branches: Optional[bool] = None
     scan_branches: bool = False
-    io_workers: int = 16
+    io_workers: int = 16                # host image-decode threads
 
     # synthetic data (benchmarks / smoke runs — no disk IO)
     synthetic_data: bool = False

@@ -1,9 +1,10 @@
 """Device-side batched data augmentation, split into draw and apply steps.
 
-Port of ``ubpl_tpu/ops/augment.py:34-117`` (reference utils/augment.py:
-fliplr, noisy_mean, affine).  ``jax.random`` keys become a
-``torch.Generator``: ``draw_augment`` takes one and returns every random
-number the chain consumes as tensors (``AugmentDraws``); the apply
+Port of ``ubpl_tpu/ops/augment.py:34-160`` (reference utils/augment.py:
+fliplr, noisy_mean, affine; utils/udaap/utils_augment.py: occlusion).
+``jax.random`` keys become a ``torch.Generator``: ``draw_augment`` (and
+``draw_occlusion``) take one and return every random number the chain
+consumes as tensors (``AugmentDraws``, ``OcclusionDraws``); the apply
 functions take those draws, so a test can feed them JAX's draws.
 
 Distributions (as the reference):
@@ -12,6 +13,8 @@ Distributions (as the reference):
             brightness U(-0.2, 0.2), clamp to [0, 1]
   * affine: scale *= clamp(N(1, sf), 1-sf, 1+sf);
             angle = clamp(N(0, rf), -rf, rf)
+  * occlusion: Bernoulli(aug_rate); per occluder a bank index, a scale
+            U(0.2, 0.7) and a centre U(0.1, 0.9)^2 (``draw_occlusion``)
 
 Images are NCHW floats in [0, 1]; keypoints [B, K, 3].
 """
@@ -131,3 +134,61 @@ def color_normalize(images, means):
     """Reference image_colorNorm: channel mean subtraction only (NCHW)."""
     means = torch.as_tensor(means, dtype=images.dtype, device=images.device)
     return images - means[None, :, None, None]
+
+
+class OcclusionDraws(NamedTuple):
+    apply: torch.Tensor     # [B] bool
+    pick: torch.Tensor      # [B, N] int64 bank indices
+    scale: torch.Tensor     # [B, N] patch scale (fraction of the image)
+    pos: torch.Tensor       # [B, N, 2] patch centre (x, y), fractions
+
+
+def draw_occlusion(batch, num_occluders, bank_size, generator, device,
+                   scale_range=(0.2, 0.7), aug_rate=0.5):
+    """Every random number of one ``composite_occluders`` call."""
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, device=device)
+        return u * (hi - lo) + lo
+
+    n = num_occluders
+    return OcclusionDraws(
+        apply=uniform((batch,), 0.0, 1.0) < aug_rate,
+        pick=torch.randint(0, bank_size, (batch, n), generator=generator,
+                           device=device),
+        scale=uniform((batch, n), *scale_range),
+        pos=uniform((batch, n, 2), 0.1, 0.9))
+
+
+def composite_occluders(images, occluder_rgb, occluder_alpha,
+                        draws: OcclusionDraws):
+    """Synthetic-occlusion augmentation (``ubpl_tpu/ops/augment.py:120-160``):
+    on the samples where ``draws.apply``, alpha-paste ``N`` occluder patches
+    one over the other, each nearest-sampled from the bank at its drawn
+    scale and centre.
+
+    images: [B, C, H, W]; occluder_rgb: [Nbank, oh, ow, C] and
+    occluder_alpha: [Nbank, oh, ow] (the bank's layout, channel-last).
+    """
+    B, _, H, W = images.shape
+    oh, ow = occluder_rgb.shape[1], occluder_rgb.shape[2]
+    dev, dt = images.device, images.dtype
+    rows = torch.arange(H, device=dev, dtype=torch.int32)
+    cols = torch.arange(W, device=dev, dtype=torch.int32)
+    pasted = images
+    for n in range(draws.pick.shape[1]):
+        s = draws.scale[:, n, None]
+        cx, cy = draws.pos[:, n, 0:1], draws.pos[:, n, 1:2]
+        ys = (rows - cy * H) / (s * H) * oh + oh / 2          # [B, H]
+        xs = (cols - cx * W) / (s * W) * ow + ow / 2          # [B, W]
+        yi = ys.to(torch.int32).clamp(0, oh - 1).long()
+        xi = xs.to(torch.int32).clamp(0, ow - 1).long()
+        inb = (((ys >= 0) & (ys < oh))[:, :, None]
+               & ((xs >= 0) & (xs < ow))[:, None, :])
+        pick = draws.pick[:, n, None, None]
+        a = (occluder_alpha[pick, yi[:, :, None], xi[:, None, :]]
+             * inb).to(dt)[:, None]                           # [B, 1, H, W]
+        patch = occluder_rgb[pick, yi[:, :, None], xi[:, None, :]]
+        patch = patch.permute(0, 3, 1, 2).to(dt)              # [B, C, H, W]
+        pasted = pasted * (1 - a) + patch * a
+    apply = draws.apply.to(dt)[:, None, None, None]
+    return apply * pasted + (1 - apply) * images

@@ -6,13 +6,14 @@ transform with the reference's ``trunc(...) + 1`` quirk, the decode-side
 inverse transform, the dataset warp matrix with its double ``1/scale``, and
 horizontal flips.
 
-The image warp has the semantics of ``warp_image_affine`` /
-``warp_images_affine_gather`` (``:147-189``): exact single-pass bilinear
-sampling with zero padding.  ``F.grid_sample(align_corners=True,
+The image warp samples where the JAX training path's ``warp_images_affine``
+(``:220-257``) does: output pixel ``p`` (0-indexed) reads the source at
+``inv(mat) @ (p - 1) + 1``, the reference's 1-indexed convention folded
+into the offsets.  It is computed as exact single-pass bilinear sampling
+with zero padding (``F.grid_sample(align_corners=True,
 padding_mode="zeros")`` on the normalised source coordinates
-``2x/(W-1) - 1`` computes exactly that.  The JAX training path's two-pass
-tent-matmul warp (``warp_images_affine``, ``:220-257``) is a TPU lowering
-device and is not ported.
+``2x/(W-1) - 1``); the two-pass tent-matmul that the JAX function uses to
+get there is a TPU lowering device and is not copied.
 
 Conventions: points are (x, y) in the last dimension; matrices act on
 1-indexed coordinates the way the reference does; images are NCHW.
@@ -128,19 +129,23 @@ def affine_warp_matrix(center, scale, angle, res):
 def warp_images_affine(images, mats_in2out, out_res):
     """Exact bilinear affine warp with zero padding.
 
-    images: [B, C, H, W] float; mats_in2out: [B, 3, 3].  Output pixel
-    (x, y), 0-indexed, samples the source at ``inv(mat) @ (x, y, 1)`` —
-    the semantics of ``warp_images_affine_gather``.  Returns
-    [B, C, out_res, out_res].
+    images: [B, C, H, W] float; mats_in2out: [B, 3, 3] (1-indexed
+    convention, as ``affine_warp_matrix`` makes them).  Output pixel
+    (x, y), 0-indexed, samples the source at ``inv(mat) @ (x - 1, y - 1, 1)
+    + 1``, as the JAX training path's ``warp_images_affine`` does (its
+    offsets ``c0 = m02 - m00 - m01 + 1``, ``c1 = m12 - m10 - m11 + 1``).
+    Returns [B, C, out_res, out_res].
     """
     B, _, H, W = images.shape
     inv = invert_affine3(mats_in2out).to(images.dtype)
+    m00, m01, m02 = inv[:, 0, 0], inv[:, 0, 1], inv[:, 0, 2]
+    m10, m11, m12 = inv[:, 1, 0], inv[:, 1, 1], inv[:, 1, 2]
+    c0 = (m02 - m00 - m01 + 1.0)[:, None, None]
+    c1 = (m12 - m10 - m11 + 1.0)[:, None, None]
     r = torch.arange(out_res, dtype=images.dtype, device=images.device)
     ys, xs = r[:, None], r[None, :]
-    sx = (inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys
-          + inv[:, 0, 2, None, None])
-    sy = (inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys
-          + inv[:, 1, 2, None, None])
+    sx = m00[:, None, None] * xs + m01[:, None, None] * ys + c0
+    sy = m10[:, None, None] * xs + m11[:, None, None] * ys + c1
     grid = torch.stack([sx * (2.0 / (W - 1)) - 1.0,
                         sy * (2.0 / (H - 1)) - 1.0], -1)
     return F.grid_sample(images, grid, mode="bilinear", padding_mode="zeros",

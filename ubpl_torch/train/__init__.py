@@ -1,2 +1,3 @@
-"""Training regimes of the port (counterpart of ``ubpl_tpu/train``).
-Ported so far: supervised, MT (mean teacher) and MT_UBPL."""
+"""Training regimes of the port (counterpart of ``ubpl_tpu/train``):
+supervised, MT (mean teacher), MT_UBPL, DualPose(_UBPL), and the ``exec``
+sweep over them."""

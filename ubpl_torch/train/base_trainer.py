@@ -1,20 +1,24 @@
 """Shared trainer skeleton of every regime: data setup, models and EMA
 teachers, batch gather, step loop, multi-head validation, the epoch loop
-with checkpoints and JSON logs, resume.
+with checkpoints, JSON logs, debug drawings, profiler trace, preemption
+guard and end-of-run report, resume, and the regimes' shared entry point.
 
-Port of ``ubpl_tpu/train/base_trainer.py``: the synthetic dataset exactly
-as ``_setup_synthetic_data`` (``:173-207``) makes it, ``fetch_batch`` in
-resident mode (``:423-433``), ``run_train_steps`` (``:467-487``), branch
-initialisation from ``cfg.seed + i`` (``:520-532``) with EMA teachers that
-start as copies of their students (``:29-41``), ``_validate_heads``
-(``:586-606``), ``run`` (``:763-814``) and ``resume`` (``:624-638``).
+Port of ``ubpl_tpu/train/base_trainer.py``: the dataset from a datasource
+on disk (``_setup_data``, ``:99-131``) or synthetic exactly as
+``_setup_synthetic_data`` (``:173-207``) makes it, the occluder bank
+(``:160-171``), ``fetch_batch`` in resident mode (``:423-433``),
+``run_train_steps`` (``:467-487``), branch initialisation from
+``cfg.seed + i`` (``:520-532``) with EMA teachers that start as copies of
+their students (``:29-41``), ``_validate_heads`` (``:586-606``),
+``resume`` (``:624-638``), ``run`` with ``maybe_debug_draw``, the
+``profile_dir`` trace, the preemption guard and ``_write_report``
+(``:743-837``), the ``torch_init`` warm start
+(``ubpl_tpu/models/torch_import.py:196-240``), and ``make_experiment`` /
+``run_regime`` (``:851-873``, without a device mesh: one card).
 
 Not ported yet, and refused by the constructor when the config asks for
-them: UBPL pseudo-label rounds (``pseudo_rounds``), the debug drawings
-(``debug``), profiler traces (``profile_dir``), the MLD optimiser, streamed
-datasets (``stream_data``) and ``torch_init`` warm starts.  Disk data
-sources, the end-of-run report and the preemption guard are not ported
-either.
+them: UBPL pseudo-label rounds (``pseudo_rounds``), the MLD optimiser and
+streamed datasets (``stream_data``).
 
 Random numbers: numpy's ``np.random.default_rng(cfg.seed)`` drives data
 and batch order (as in the JAX package); the augmentation draws come from a
@@ -22,16 +26,26 @@ and batch order (as in the JAX package); the augmentation draws come from a
 """
 import copy
 import datetime
+import os
+import re
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.arrays import materialize
+from ..data.base import default_data_root
+from ..data.occluders import build_occluder_bank
 from ..data.sampler import TwoStreamBatchSampler, valid_batches
+from ..data.sources import get_datasource
 from ..device import memory_format, resolve_device
 from ..models import create_pose_model
+from ..models.weights import load_reference_checkpoint, load_state
 from ..ops import augment as A
 from ..utils import Logger, json_save
+from ..utils.preemption import PreemptionGuard
+from ..utils.profiling import trace
+from ..utils.report import RunReport
 from . import losses as L
 from .checkpointing import restore_checkpoint, save_checkpoint
 from .common import (make_view, put_dataset, sample_weights,
@@ -40,12 +54,10 @@ from .common import (make_view, put_dataset, sample_weights,
 # Config fields whose feature the port does not have yet: (field, test)
 _NOT_PORTED = (
     ("pseudo_rounds", lambda v: v > 0),
-    ("debug", bool),
-    ("profile_dir", lambda v: v is not None),
     ("optimizer", lambda v: v == "mld"),
     ("stream_data", bool),
-    ("torch_init", bool),
 )
+_NETWORK_KEY = re.compile(r"model(\d*)(_ema)?_state")
 
 
 def synthetic_arrays(cfg: Config):
@@ -89,7 +101,15 @@ class BaseTrainer:
         self.device = resolve_device(device)
         self.logger = logger or Logger(f"{cfg.data_source}_{self.regime}")
         self._setup_data()
+        self._setup_occluders()
         self._setup_model()
+        if cfg.torch_init:
+            meta = self.warm_start(cfg.torch_init)
+            self.logger.print(
+                "L1", "=> warm start from reference checkpoint {} "
+                "(epoch {}, {})".format(cfg.torch_init,
+                                        meta["current_epoch"],
+                                        meta["source_key"]))
         n = len(self.valid_heads)
         self.best_acc = [-1.0] * n
         self.best_epoch = [0] * n
@@ -98,15 +118,39 @@ class BaseTrainer:
 
     # ------------------------------------------------------------------ data
     def _setup_data(self):
+        """The dataset in device memory: from ``cfg.data_source`` on disk
+        (split, materialised once, the split's means), or synthetic."""
         cfg = self.cfg
-        if not cfg.synthetic_data:
-            raise NotImplementedError(
-                "disk data sources are not ported yet; use synthetic_data")
-        train, valid, n_lab = synthetic_arrays(cfg)
-        means = [0.5, 0.5, 0.5]
-        self.labeled_idxs = list(range(n_lab))
-        self.unlabeled_idxs = list(range(n_lab, cfg.train_count))
-        self.n_valid = cfg.valid_count
+        if cfg.synthetic_data:
+            train, valid, n_lab = synthetic_arrays(cfg)
+            labeled = range(n_lab)
+            unlabeled = range(n_lab, cfg.train_count)
+            means = [0.5, 0.5, 0.5]
+        else:
+            ds = get_datasource(cfg.data_source, data_root=cfg.data_root,
+                                cache_dir=cfg.cache_dir, seed=cfg.seed)
+            semi = ds.get_semi_data(cfg.train_count, cfg.valid_count,
+                                    cfg.label_ratio)
+            cfg.kps_count = ds.kps_count
+            cfg.inp_res, cfg.out_res = ds.inp_res, ds.out_res
+            if cfg.force_inp_res:
+                cfg.inp_res = cfg.force_inp_res
+            if cfg.force_out_res:
+                cfg.out_res = cfg.force_out_res
+            cfg.pck_ref, cfg.pck_thr = tuple(ds.pck_ref), ds.pck_thr
+
+            def arrays(records):
+                a = materialize(records, cfg.inp_res, cfg.io_workers,
+                                ds.image_cache)
+                return {"images": a.images, "kps": a.kps,
+                        "kps_test": a.kps_test, "islabeled": a.islabeled}
+
+            train, valid = arrays(semi.semi_train), arrays(semi.valid)
+            labeled, unlabeled = semi.labeled_idxs, semi.unlabeled_idxs
+            means = semi.means
+        self.labeled_idxs = list(labeled)
+        self.unlabeled_idxs = list(unlabeled)
+        self.n_valid = len(valid["images"])
         self.train_data = put_dataset(**train, means=means, device=self.device)
         self.valid_data = put_dataset(**valid, means=means, device=self.device)
         self.means = self.train_data.means
@@ -114,20 +158,51 @@ class BaseTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
 
+    def _setup_occluders(self):
+        """Occluder bank for ``use_occlusion`` (VOC2012 under
+        ``{data_root}/pascal/VOCdevkit/VOC2012``, else synthetic blobs), on
+        the device; None when occlusion is off.  As in the JAX package,
+        ``use_occlusion_ema`` alone builds no bank."""
+        self.occluder_bank = None
+        cfg = self.cfg
+        if not cfg.use_occlusion:
+            return
+        voc = os.path.join(cfg.data_root or default_data_root(), "pascal",
+                           "VOCdevkit", "VOC2012")
+        rgb, alpha = build_occluder_bank(voc_root=voc, seed=cfg.seed)
+        self.occluder_bank = (torch.as_tensor(rgb, device=self.device),
+                              torch.as_tensor(alpha, device=self.device))
+
     def fetch_batch(self, data, idxs):
         """Gather one batch from the device-resident dataset."""
         i = torch.as_tensor(np.asarray(idxs), device=self.device)
         return data.images[i], data.kps[i], data.islabeled[i]
 
+    def augmented_view(self, imgs, kps, *, scale_range=None, rot_range=None,
+                       occlude=None):
+        """One augmented view of a gathered batch: its augmentation draws
+        (then its occlusion draws, where ``occlude`` — by default
+        ``cfg.use_occlusion`` — is on and there is a bank) from the
+        trainer's generator, and one heatmap-kernel launch."""
+        cfg = self.cfg
+        B = imgs.shape[0]
+        draws = A.draw_augment(B, self.generator, self.device)
+        occlude = cfg.use_occlusion if occlude is None else occlude
+        occlusion = None
+        if occlude and self.occluder_bank is not None:
+            rgb, alpha = self.occluder_bank
+            occlusion = (rgb, alpha, A.draw_occlusion(
+                B, cfg.num_occluder, rgb.shape[0], self.generator,
+                self.device))
+        return make_view(imgs, kps, self.means, cfg, draws,
+                         scale_range=scale_range, rot_range=rot_range,
+                         occlusion=occlusion)
+
     def make_views(self, idxs, n_views):
         """Gather a training batch and build ``n_views`` independently
-        augmented views of it (one ``draw_augment`` and one kernel launch
-        each).  Returns (views, islabeled)."""
+        augmented views of it.  Returns (views, islabeled)."""
         imgs, kps, islabeled = self.fetch_batch(self.train_data, idxs)
-        views = [make_view(imgs, kps, self.means, self.cfg,
-                           A.draw_augment(len(idxs), self.generator,
-                                          self.device))
-                 for _ in range(n_views)]
+        views = [self.augmented_view(imgs, kps) for _ in range(n_views)]
         return views, islabeled
 
     def make_sampler(self):
@@ -180,6 +255,24 @@ class BaseTrainer:
         """Build the networks and ``self.optimizer``, and name the networks
         in ``self.networks`` by their reference checkpoint keys."""
         raise NotImplementedError
+
+    def warm_start(self, path):
+        """``cfg.torch_init``: replace every network's weights with a
+        reference ``.pth.tar``'s.  ``model{i}[_ema]_state`` takes branch i
+        (1 for ``model[_ema]_state``), the student or the EMA head (which
+        falls back to the student in a supervised checkpoint).  The
+        optimiser state stays fresh, as in the JAX package.  Returns the
+        checkpoint's meta of branch 1's student."""
+        meta = None
+        for key, net in self.networks.items():
+            tag, ema = _NETWORK_KEY.fullmatch(key).groups()
+            sd, m = load_reference_checkpoint(
+                path, branch=int(tag or 1), head="ema" if ema else "student")
+            load_state(net, sd)
+            if not ema and tag in ("", "1"):
+                meta = m
+        self.optimizer.state.clear()
+        return meta
 
     # ------------------------------------------------------------- step exec
     def train_step(self, idxs, *sched_args):
@@ -261,10 +354,30 @@ class BaseTrainer:
             meta.get("best_epoch", self.best_epoch))]
         return int(meta["current_epoch"]) + 1
 
+    def maybe_debug_draw(self, base_path, epo):
+        """``cfg.debug``: dump the augmentation of the first labeled batch
+        (up to 4 samples; draws from ``cfg.seed + epo``, apart from the
+        training stream) under ``{base_path}/draw`` (reference --debug)."""
+        if not (self.cfg.debug and base_path):
+            return
+        from ..utils.draw import DebugDrawer
+        cfg = self.cfg
+        idxs = np.asarray(self.labeled_idxs[:min(4, len(self.labeled_idxs))])
+        imgs, kps, _ = self.fetch_batch(self.train_data, idxs)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed + epo)
+        view = make_view(imgs, kps, torch.zeros(3, device=self.device), cfg,
+                         A.draw_augment(len(idxs), gen, self.device))
+        DebugDrawer(base_path).dump_view([str(i) for i in idxs], view,
+                                         prefix=f"epo{epo + 1}_")
+
     def run(self, base_path=None, start_epoch=0, resume=False):
-        """The epoch loop: schedules -> train -> validate -> best tracking
-        per head -> checkpoint and JSON logs under ``base_path`` -> the
-        epoch's log line.  Returns the per-epoch history."""
+        """The epoch loop: debug drawings -> schedules -> train (under a
+        profiler trace in the first epoch when ``cfg.profile_dir``) ->
+        validate -> best tracking per head -> checkpoint and JSON logs
+        under ``base_path`` -> the epoch's log line -> stop here if a
+        preemption was requested; then the report.  Returns the per-epoch
+        history."""
         cfg = self.cfg
         if resume and base_path:
             start_epoch = self.resume(base_path)
@@ -272,7 +385,11 @@ class BaseTrainer:
         for epo in range(start_epoch, cfg.epochs):
             epo_tm = datetime.datetime.now()
             self.epoch = epo
-            losses = self.train_epoch(epo, self.epoch_schedules(epo))
+            self.maybe_debug_draw(base_path, epo)
+            schedules = self.epoch_schedules(epo)
+            with trace(cfg.profile_dir, enabled=cfg.profile_dir is not None
+                       and epo == start_epoch):
+                losses = self.train_epoch(epo, schedules)
             preds, accs, errs = self.validate()
             is_best = []
             for m in range(len(self.valid_heads)):
@@ -300,4 +417,54 @@ class BaseTrainer:
                         self.format_epoch_log(losses, accs, errs)),
                 start=epo_tm)
             history.append({**losses, "accs": accs, "errs": errs})
+            if base_path and self._preemption_requested():
+                self.logger.print("L1", "preemption requested — checkpointed "
+                                        f"at epoch {epo + 1}; resume with "
+                                        "run(resume=True)")
+                break
+        if base_path and history:
+            self._write_report(base_path, history)
         return history
+
+    @staticmethod
+    def _preemption_requested():
+        """Honoured only where a PreemptionGuard was installed (``exec``)."""
+        guard = PreemptionGuard._installed
+        return bool(guard and guard.requested)
+
+    @staticmethod
+    def _write_report(base_path, history):
+        """End-of-run metric table (reference xlsx dumps -> CSV, markdown
+        and xlsx under ``logs/report.*``)."""
+        loss_keys = [k for k in history[0] if k not in ("accs", "errs")]
+        rep = RunReport(["epoch", *loss_keys, "acc", "err"])
+        for epo, h in enumerate(history):
+            row = {"epoch": epo + 1, "acc": h["accs"][-1][-1],
+                   "err": h["errs"][-1][-1]}
+            for k in loss_keys:
+                v = h[k]
+                row[k] = float(np.mean(v)) if isinstance(v, (list, tuple)) else v
+            rep.add_row(**row)
+        rep.to_csv(f"{base_path}/logs/report.csv", highlight_column="acc")
+        rep.to_markdown(f"{base_path}/logs/report.md", highlight_column="acc")
+        rep.to_xlsx(f"{base_path}/logs/report.xlsx", highlight_column="acc")
+
+
+def make_experiment(cfg: Config, exp_mark: str):
+    """Reference exec(): experiment naming + logger + base path."""
+    experiment = "{}({}_{})_{}_{}".format(
+        cfg.data_source, cfg.train_count, cfg.label_ratio, exp_mark,
+        datetime.datetime.now().strftime("%Y%m%d%H%M%S"))
+    base_path = f"{cfg.experiment_root}/{experiment}"
+    logger = Logger(experiment, base_path=base_path)
+    return experiment, base_path, logger
+
+
+def run_regime(trainer_cls, exp_mark: str, params=None, device=None):
+    """Shared exec() body of every regime's entry point: config override,
+    experiment naming, the trainer on ``device`` (None: the card), its
+    run.  Returns the history."""
+    cfg = Config().override(params)
+    np.random.seed(cfg.seed)
+    _, base_path, logger = make_experiment(cfg, exp_mark)
+    return trainer_cls(cfg, device=device, logger=logger).run(base_path)

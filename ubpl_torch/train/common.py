@@ -63,13 +63,12 @@ def images_to_float(images_u8):
 
 
 def make_view(images_u8, kps, means, cfg, draws: Optional[A.AugmentDraws]
-              = None, *, scale_range=None, rot_range=None):
+              = None, *, scale_range=None, rot_range=None, occlusion=None):
     """Build one view on the device (reference CommDataset.__getitem__
-    steps 2-5): (flip, noise, affine) -> colorNorm -> heatmap targets with
-    the visibility re-gate -> warpmat.  ``draws=None`` builds the
-    un-augmented view."""
-    if cfg.use_occlusion:
-        raise NotImplementedError("occlusion augmentation is not ported yet")
+    steps 2-5): (flip, noise, affine, occlusion) -> colorNorm -> heatmap
+    targets with the visibility re-gate -> warpmat.  ``draws=None`` builds
+    the un-augmented view.  ``occlusion``: None, or (bank rgb, bank alpha,
+    ``A.OcclusionDraws``) to paste occluders after the affine warp."""
     B, inp = images_u8.shape[0], cfg.inp_res
     dev = images_u8.device
     imgs = images_to_float(images_u8)
@@ -84,6 +83,8 @@ def make_view(images_u8, kps, means, cfg, draws: Optional[A.AugmentDraws]
         imgs, kps, center = aug.images, aug.kps, aug.center
         scale, angle, isflip, warpmat = (aug.scale, aug.angle, aug.isflip,
                                          aug.warpmat)
+        if occlusion is not None:
+            imgs = A.composite_occluders(imgs, *occlusion)
     else:
         scale = base_scale
         angle = torch.zeros((B,), device=dev)

@@ -9,7 +9,7 @@ ensemble pseudo-label and feature-decorrelation terms off.
 """
 from . import losses as L
 from . import schedules as S
-from .base_trainer import BaseTrainer
+from .base_trainer import BaseTrainer, run_regime
 from .mt_ubpl import teacher_student_step
 
 
@@ -60,3 +60,8 @@ class MeanTeacherTrainer(BaseTrainer):
     def validate(self):
         return self._validate_heads([self.students[0], self.teachers[0]],
                                     False)
+
+
+def exec_regime(exp_mark="MT", params=None, device=None):
+    """Entry point of the ``mt`` regime (``run_regime``)."""
+    return run_regime(MeanTeacherTrainer, exp_mark, params, device)

@@ -26,7 +26,7 @@ import torch
 
 from . import losses as L
 from . import schedules as S
-from .base_trainer import BaseTrainer
+from .base_trainer import BaseTrainer, run_regime
 from .common import forward_heatmaps, sample_weights
 
 
@@ -51,6 +51,20 @@ def _forward_views(model, views, cfg, remat=False):
 def _weighted(sums, counts, w):
     """w * sum / count per branch; the bare sum where the count is 0."""
     return w * torch.where(counts > 0, sums / counts.clamp(min=1), sums)
+
+
+def optimize_and_ema(students, teachers, optimizer, total, ema_alpha):
+    """Backward of ``total``, one optimiser step over the students, then
+    each teacher's parameters (not its BatchNorm stats) move to
+    ``ema_alpha * teacher + (1 - ema_alpha) * student``."""
+    optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    optimizer.step()
+    with torch.no_grad():
+        ema = [p for t in teachers for p in t.parameters()]
+        new = [p for s in students for p in s.parameters()]
+        torch._foreach_mul_(ema, ema_alpha)
+        torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
 
 
 def teacher_student_step(students, teachers, optimizer, views, islabeled,
@@ -120,15 +134,8 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
                                        fdc_sum / fdc_count.clamp(min=1),
                                        fdc_sum)
 
-    total = pec.sum() + (mtc + epc).sum() + 2.0 * fdc
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    optimizer.step()
-    with torch.no_grad():
-        ema = [p for t in teachers for p in t.parameters()]
-        new = [p for s in students for p in s.parameters()]
-        torch._foreach_mul_(ema, ema_alpha)
-        torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
+    optimize_and_ema(students, teachers, optimizer,
+                     pec.sum() + (mtc + epc).sum() + 2.0 * fdc, ema_alpha)
     return {"pec": pec.detach(), "pec_count": sums["pec_n"],
             "mtc": mtc.detach(), "mtc_count": sums["mtc_n"],
             "epc": epc.detach(), "epc_count": sums["epc_n"],
@@ -202,3 +209,8 @@ class MTUBPLTrainer(BaseTrainer):
                     ", ".join(f"{v:.5f}" for v in losses["mtc_losses"]),
                     ", ".join(f"{v:.5f}" for v in losses["epc_losses"]),
                     losses["fdc_loss"], accs[-1][-1], errs[-1][-1]))
+
+
+def exec_regime(exp_mark="MT_UBPL", params=None, device=None):
+    """Entry point of the ``mt_ubpl`` regime (``run_regime``)."""
+    return run_regime(MTUBPLTrainer, exp_mark, params, device)

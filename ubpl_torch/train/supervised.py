@@ -11,7 +11,7 @@ import torch
 
 from ..data.sampler import supervised_epoch_batches
 from . import losses as L
-from .base_trainer import BaseTrainer
+from .base_trainer import BaseTrainer, run_regime
 from .common import forward_heatmaps
 
 
@@ -54,3 +54,8 @@ class SupervisedTrainer(BaseTrainer):
 
     def validate(self):
         return self._validate_heads([self.model], False)
+
+
+def exec_regime(exp_mark="Supervised", params=None, device=None):
+    """Entry point of the ``supervised`` regime (``run_regime``)."""
+    return run_regime(SupervisedTrainer, exp_mark, params, device)
