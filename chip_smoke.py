@@ -17,6 +17,14 @@ width through their user entry points:
     per step — then validates its three heads, writes a checkpoint and
     serves it through ``PoseEstimator.from_checkpoint``; a few more steps
     run with ``remat`` for its memory and time;
+  * train_mt_ubpl_mld: the same trainer with ``optimizer="mld"`` (two
+    pullbacks per step, combined by the MLD surgery): its first step, at
+    mld_alpha 0, held to an AdamW trainer's on the same views, then 7 at
+    0.5 — two kernel launches per step;
+  * train_mt_ubpl_stream: the same shape with ``stream_data`` (pinned host
+    arrays, batches copied on a side stream one step ahead): its first step
+    held to a resident trainer's, 8 steps, when the copies ran on the
+    device clock, and the profile's host-to-device copies with their stream;
   * train_mt: ``MeanTeacherTrainer``, same shape, 4 steps and a validation;
   * data_disk: writes a Mouse tree in the reference layout (320 PNG crops of
     320x240, 9 keypoints each, under ``chiprun_out/smoke_data``, removed at
@@ -28,6 +36,12 @@ width through their user entry points:
     validation images, 2 epochs with a profiler trace of the first; two
     heatmap-kernel launches per step, the run's artifacts, and its
     checkpoint served by ``PoseEstimator.from_checkpoint``;
+  * cli_mt_ubpl_pseudo: ``python -m ubpl_torch mt_ubpl`` on that tree with
+    a UBPL pseudo-label round after each of 2 epochs (128 unlabeled images,
+    2 augmented views) and ``optimizer="mld"``, then a third epoch resumed
+    from its checkpoint with the pseudo-round state restored exactly; the
+    rounds' views skip target synthesis, so only the steps launch the
+    kernel;
   * cli_exec_quick: ``python -m ubpl_torch exec --quick`` on the same tree:
     all five regimes, 2 epochs each, HG2 (the depth cut), 24 images.
 
@@ -49,6 +63,7 @@ import contextlib
 import glob
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -363,7 +378,7 @@ def phase_train_mt_ubpl(counts):
     profile_steps("train_mt_ubpl_profile", tr, list(tr.make_sampler())[:3],
                   sched, steady)
     phase_remat(tr, sched, steady, peak_gb)
-    return launches
+    return launches, steady
 
 
 def phase_remat(tr, sched, plain_ms, plain_gb):
@@ -427,6 +442,229 @@ def phase_train_mt(counts):
     return launches
 
 
+def phase_train_mt_ubpl_mld(counts):
+    """MT_UBPL with ``optimizer="mld"``: one forward and two pullbacks per
+    step, combined by the MLD surgery.  Its first step, at mld_alpha 0,
+    is held to an AdamW trainer's step on the same weights, batch and
+    views (the surgery is then the identity on the summed gradient); the
+    other 7 run at mld_alpha 0.5; then a profiler window."""
+    import torch
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    cfg_kw = dict(label_ratio=0.5, train_bs_labeled=16)
+    adam = MTUBPLTrainer(train_config(**cfg_kw), device="cuda")
+    tr = MTUBPLTrainer(train_config(optimizer="mld", mld_alpha=0.0, **cfg_kw),
+                       device="cuda")
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())
+    if [list(b) for b in batches] != [list(b) for b in adam.make_sampler()]:
+        raise AssertionError("the two trainers sample different batches")
+    want = {k: v.tolist() for k, v in
+            adam.run_train_steps(batches[:1], *sched)[0].items()}
+    torch.cuda.synchronize()
+    counts.reset()
+    step_ms, metrics = timed_steps(tr, batches[:1], sched, 2)
+    for key in ("pec", "mtc", "epc", "fdc"):
+        np.testing.assert_allclose(metrics[0][key], want[key], rtol=1e-3,
+                                   atol=1e-7, err_msg=key)
+    lr = tr.cfg.lr
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(tr.optimizer.param_groups[0]["params"],
+                       adam.optimizer.param_groups[0]["params"]))
+    if not diff <= 2.1 * lr:
+        raise AssertionError(f"MLD at alpha 0 vs AdamW: params differ by "
+                             f"{diff} > 2.1 lr")
+    del adam                    # the peak below is the MLD trainer's alone
+    torch.cuda.reset_peak_memory_stats()
+    tr.cfg.mld_alpha = 0.5
+    more_ms, more = timed_steps(tr, batches[1:], sched, 2, done=1)
+    step_ms, metrics = step_ms + more_ms, metrics + more
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts.read()
+    for m in metrics:
+        assert_finite("MLD metric", *m.values())
+    steady = statistics.median(step_ms[1:])
+    emit({"phase": "train_mt_ubpl_mld", "regime": "MT_UBPL",
+          "optimizer": "mld", "mld_alpha": [0.0] + [0.5] * (len(step_ms) - 1),
+          "model": tr.cfg.model, "dtype": tr.cfg.compute_dtype,
+          "train_bs": tr.cfg.train_bs, "steps": len(step_ms),
+          "step_ms": step_ms, "steady_step_ms_median": steady,
+          "images_per_s": tr.cfg.train_bs / steady * 1e3,
+          "peak_memory_gb": peak_gb,
+          "alpha0_vs_adamw": {"losses": {k: [metrics[0][k], want[k]]
+                                         for k in ("pec", "mtc", "epc",
+                                                   "fdc")},
+                              "max_param_diff": diff, "lr": lr},
+          "kernel_launches": launches, "kernel_launches_per_step": 2})
+    profile_steps("train_mt_ubpl_mld_profile", tr, list(tr.make_sampler())[:3],
+                  sched, steady)
+    return launches
+
+
+def stream_profile(tr, batches, sched, step_ms):
+    """Profiler window (device activity only) over streamed steps; see
+    ``copy_stats``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(BUILD, "stream_trace.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run_train_steps(batches, *sched)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return copy_stats(events, len(batches), step_ms)
+
+
+def copy_stats(events, n, step_ms):
+    """From a Chrome trace's device events over ``n`` steps: device busy
+    time (kernels, copies, memsets) and kernels per step, and the
+    host-to-device copies the trace recorded, with their streams, bytes
+    and rates.  The card's CUPTI does not record every issued copy (the
+    ``cudaMemcpyAsync`` calls are all there), so when the copies ran is
+    timed with CUDA events instead (``stream_timeline``)."""
+    events = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if "memcpy" in e.get("cat", "").lower()
+              and "HtoD" in e.get("name", "")]
+    issued = sum(1 for e in events if e.get("name") == "cudaMemcpyAsync")
+    if not kernels or not copies:
+        raise AssertionError(f"profile: {len(kernels)} kernels, "
+                             f"{len(copies)} HtoD copies")
+
+    def stream(e):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    compute = statistics.mode(stream(k) for k in kernels)
+    copy_streams = {stream(c) for c in copies}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                      "gpu_memset")]
+    busy = sum(e["dur"] for e in device) / 1e3 / n
+    big = [c for c in copies if c.get("args", {}).get("bytes", 0) >= 1 << 20]
+    return {"steps": n, "memcpy_calls": issued,
+            "htod_batch_copy_us": [c["dur"] for c in big],
+            "htod_batch_copy_gb_s": [c["args"]["bytes"] / c["dur"] / 1e3
+                                     for c in big], "device_busy_ms_per_step": busy, "step_ms": step_ms,
+            "idle_share": 1 - busy / step_ms,
+            "device_kernels_per_step": len(kernels) / n,
+            "compute_stream": compute,
+            "htod_copies_recorded": len(copies),
+            "htod_copy_streams": sorted(copy_streams),
+            "htod_copy_names": sorted({c["name"] for c in copies}),
+            "htod_recorded_bytes": sum(c.get("args", {}).get("bytes", 0)
+                                       for c in copies)}
+
+
+def stream_timeline(tr, batches, sched):
+    """The prefetch on the device clock, with no host sync between steps:
+    for each step j, when batch j + 1's copy had finished on the side
+    stream, in ms after step j began on the compute stream, beside step
+    j's span there (CUDA events recorded after each copy and around each
+    step)."""
+    import torch
+    copies, spans = [], []
+    real_put, real_step = tr.streamer.put, tr.train_step
+
+    def event(stream=None):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(stream)
+        return e
+
+    def put(idxs):
+        batch = real_put(idxs)
+        copies.append(event(tr.streamer.stream))
+        return batch
+
+    def step(*args):
+        start = event()
+        out = real_step(*args)
+        spans.append((start, event()))
+        return out
+
+    tr.streamer.put, tr.train_step = put, step
+    try:
+        torch.cuda.synchronize()
+        tr.run_train_steps(batches, *sched)
+        torch.cuda.synchronize()
+    finally:
+        del tr.streamer.put, tr.train_step
+    return [{"copy_done_ms": s.elapsed_time(copies[j + 1]),
+             "step_ms": s.elapsed_time(e)}
+            for j, (s, e) in enumerate(spans[:-1])]
+
+
+def phase_train_mt_ubpl_stream(counts, resident_ms):
+    """MT_UBPL with ``stream_data``: the training set in pinned host memory,
+    each batch gathered into a pinned staging buffer and copied on a side
+    stream one step ahead.  Its first step is held to a resident trainer's
+    on the same batch and draws; 8 steps through ``run_train_steps`` (the
+    prefetch spans them; the step timer's syncs serialise it), then the
+    prefetch on the device clock over 4 steps without syncs, and a
+    profiler window over 3 more."""
+    import torch
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    cfg_kw = dict(label_ratio=0.5, train_bs_labeled=16)
+    resident = MTUBPLTrainer(train_config(**cfg_kw), device="cuda")
+    tr = MTUBPLTrainer(train_config(stream_data=True, **cfg_kw),
+                       device="cuda")
+    if tr.train_data is not None or not tr.train_host.images.is_pinned():
+        raise AssertionError("stream_data: the training set is not in "
+                             "pinned host memory")
+    if tr.streamer.stream == torch.cuda.default_stream():
+        raise AssertionError("stream_data copies on the default stream")
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())
+    want = {k: v.tolist() for k, v in
+            resident.run_train_steps(batches[:1], *sched)[0].items()}
+    del resident
+    torch.cuda.synchronize()
+    counts.reset()
+    with observe(MTUBPLTrainer) as seen:
+        metrics = tr.run_train_steps(batches, *sched)
+    launches = counts.read()
+    metrics = [{k: v.tolist() for k, v in m.items()} for m in metrics]
+    for key in ("pec", "mtc", "epc", "fdc"):
+        np.testing.assert_allclose(metrics[0][key], want[key], rtol=1e-3,
+                                   atol=1e-7, err_msg=key)
+    for m in metrics:
+        assert_finite("streamed metric", *m.values())
+    step_ms = [t for _, t in seen["steps"]]
+    if len(step_ms) != 8 or launches[HS.NAME] != 16:
+        raise AssertionError(f"{len(step_ms)} steps, {launches[HS.NAME]} "
+                             "heatmap launches")
+    steady = statistics.median(step_ms[1:])
+    timeline = stream_timeline(tr, list(tr.make_sampler())[:5], sched)
+    if any(t["copy_done_ms"] > t["step_ms"] for t in timeline):
+        raise AssertionError(f"a prefetched copy outlasted its step: "
+                             f"{timeline}")
+    prof = stream_profile(tr, list(tr.make_sampler())[:3], sched, steady)
+    # every copy the trace recorded is from pinned memory, on a stream
+    # other than the compute stream (the trace may miss a copy record:
+    # on the card's CUPTI some of the issued copies do not appear)
+    if prof["htod_copy_streams"] == [] or prof["compute_stream"] in \
+            prof["htod_copy_streams"] or any(
+                "Pinned" not in name for name in prof["htod_copy_names"]):
+        raise AssertionError(f"streamed copies: {prof}")
+    emit({"phase": "train_mt_ubpl_stream", "regime": "MT_UBPL",
+          "stream_data": True, "model": tr.cfg.model,
+          "dtype": tr.cfg.compute_dtype, "train_bs": tr.cfg.train_bs,
+          "steps": len(step_ms), "step_ms": step_ms,
+          "steady_step_ms_median": steady,
+          "resident_steady_step_ms_median": resident_ms,
+          "images_per_s": tr.cfg.train_bs / steady * 1e3,
+          "first_step_vs_resident": {k: [metrics[0][k], want[k]]
+                                     for k in ("pec", "mtc", "epc", "fdc")},
+          "batch_bytes": sum(a[0].numel() * a.element_size() * tr.cfg.train_bs
+                             for a in tr.train_host),
+          "kernel_launches": launches, "kernel_launches_per_step": 2})
+    emit({"phase": "train_mt_ubpl_stream_profile", **prof,
+          "prefetch_timeline": timeline})
+    return launches
+
+
 def profile_steps(phase, tr, batches, sched, step_ms):
     """torch.profiler over a few more training steps (after the counted
     run): device time per step by kernel and by kind, and the device's idle
@@ -440,29 +678,36 @@ def profile_steps(phase, tr, batches, sched, step_ms):
         tr.run_train_steps(batches, *sched)
         torch.cuda.synchronize()
     n = len(batches)
-    # kernels only: user annotations ("Optimizer.step#...") also appear on
-    # the device timeline, spanning their kernels and the gaps between them
+    # device activity only: user annotations ("Optimizer.step#AdamW.step")
+    # also appear on the device timeline, spanning their kernels and the
+    # gaps between them.  Kernel names may hold '#' too ("{lambda(float)#1}"),
+    # so an annotation is told by its form, not by the '#' alone.
     dev = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
            for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and "#" not in e.key
-           and not getattr(e, "is_user_annotation", False)]
-    kinds = {"convolution": ("conv", "xmma", "cutlass", "gemm", "cudnn",
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)]
+    kinds = {"memcpy_memset": ("memcpy", "memset"),
+             "convolution": ("conv", "xmma", "cutlass", "gemm", "cudnn",
                              "implicit"),
              "batchnorm": ("batch_norm",),
              "optimizer_ema": ("multi_tensor", "foreach", "adam"),
              "heatmap_synth": ("heatmap_synth",)}
     by_kind = {k: 0.0 for k in list(kinds) + ["other"]}
-    for key, ms, _ in dev:
+    n_copies = 0.0
+    for key, ms, count in dev:
         low = key.lower()
         kind = next((k for k, pats in kinds.items()
                      if any(p in low for p in pats)), "other")
         by_kind[kind] += ms
+        n_copies += count if kind == "memcpy_memset" else 0
     busy_ms = sum(d[1] for d in dev)
     top = sorted(dev, key=lambda d: -d[1])[:12]
     emit({"phase": phase, "steps": n,
           "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
           "idle_share": (1 - busy_ms / step_ms) if busy_ms else None,
-          "device_kernels_per_step": sum(d[2] for d in dev),
+          "device_kernels_per_step": sum(d[2] for d in dev) - n_copies,
+          "device_copies_memsets_per_step": n_copies,
           "device_ms_per_step_by_kind": by_kind,
           "top_kernels_ms_per_step": [[k[:100], t, c] for k, t, c in top]})
 
@@ -548,34 +793,36 @@ def phase_data_disk():
 
 
 @contextlib.contextmanager
-def observe(*classes):
-    """Wrap each class's ``train_step``: the host time of every step,
-    synchronised before and after, and the last trainer seen."""
+def observe(*classes, method="train_step"):
+    """Wrap each class's ``method`` (by default ``train_step``): the host
+    time of every call, synchronised before and after, its result, and the
+    last trainer seen."""
     import torch
-    seen = {"steps": [], "trainer": None}
-    real = {cls: cls.__dict__.get("train_step") for cls in classes}
+    seen = {"steps": [], "results": [], "trainer": None}
+    real = {cls: cls.__dict__.get(method) for cls in classes}
 
     def wrap(cls, fn):
-        def train_step(self, *args):
+        def timed(self, *args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(self, *args)
+            out = fn(self, *args, **kw)
             torch.cuda.synchronize()
             seen["steps"].append((cls.regime, (time.perf_counter() - t0) * 1e3))
+            seen["results"].append(out)
             seen["trainer"] = self
             return out
-        return train_step
+        return timed
 
     for cls, fn in real.items():
-        cls.train_step = wrap(cls, fn or getattr(cls, "train_step"))
+        setattr(cls, method, wrap(cls, fn or getattr(cls, method)))
     try:
         yield seen
     finally:
         for cls, fn in real.items():
             if fn is None:
-                del cls.train_step
+                delattr(cls, method)
             else:
-                cls.train_step = fn
+                setattr(cls, method, fn)
 
 
 def cli_run_dir(root):
@@ -675,6 +922,100 @@ def phase_cli_dualpose_ubpl(counts):
     return launches
 
 
+def phase_cli_mt_ubpl_pseudo(counts):
+    """The UBPL workflow through the user's entry point on the smoke's Mouse
+    tree: ``python -m ubpl_torch mt_ubpl`` with a pseudo-label round after
+    each of 2 epochs and the MLD optimiser, HG3 at its published widths,
+    bf16, bs 32 = 16 + 16, 256 training images (128 unlabeled) and 64
+    validation images; then a third epoch resumed from its checkpoint,
+    which must restore the pseudo-round state exactly."""
+    import torch
+    from ubpl_torch.__main__ import main, parse_overrides
+    from ubpl_torch.config import Config
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    exp = os.path.join(BUILD, "cli_mt_ubpl_pseudo")
+    shutil.rmtree(exp, ignore_errors=True)
+    argv = ["mt_ubpl", "--data_source=Mouse", f"--data_root={SMOKE_DATA}",
+            "--train_count=256", "--valid_count=64", "--label_ratio=0.5",
+            "--train_bs=32", "--train_bs_labeled=16", "--infer_bs=32",
+            "--model=HG3", "--epochs=2", "--compute_dtype=bfloat16",
+            "--pseudo_rounds=2", "--pseudo_interval=1",
+            "--pseudo_aug_views=2", "--optimizer=mld",
+            f"--experiment_root={exp}",
+            f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"]
+    torch.cuda.synchronize()
+    counts.reset()
+    t0 = time.perf_counter()
+    with observe(MTUBPLTrainer) as seen, \
+            observe(MTUBPLTrainer, method="maybe_pseudo_round") as rounds:
+        rc = main(argv)
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    tr = seen["trainer"]
+    step_ms = [t for _, t in seen["steps"]]
+    round_ms = [t for (_, t), sel in zip(rounds["steps"], rounds["results"])
+                if sel is not None]
+    if len(step_ms) != 16 or len(round_ms) != 2:
+        raise AssertionError(f"{len(step_ms)} steps, {len(round_ms)} rounds")
+    base = cli_run_dir(exp)
+    logs = []
+    for e in (1, 2):
+        with open(os.path.join(base, "logs", "pseudoRounds",
+                               f"round_{e}.json")) as f:
+            logs.append(json.load(f))
+    unl = tr.unlabeled_idxs
+    flipped = int(tr.train_data.islabeled[unl].sum())
+    injected = int((tr.train_data.kps[unl, :, 2] > 0).sum())
+    selected = logs[-1]["selected"]
+    if tr._pseudo_rounds_done != 2 or injected != selected or (
+            (selected > 0) != (flipped > 0)):
+        raise AssertionError(f"rounds {tr._pseudo_rounds_done}, selected "
+                             f"{selected}, injected {injected}, flipped "
+                             f"{flipped}")
+    # a third epoch, resumed: the pseudo state comes back exactly
+    params = parse_overrides(argv[1:])
+    params["epochs"] = 3
+    resumed = MTUBPLTrainer(Config().override(params), device="cuda",
+                            logger=tr.logger)
+    with observe(MTUBPLTrainer) as more:
+        history = resumed.run(base, resume=True)
+    launches = counts.read()
+    a, b = resumed._pseudo_loop, tr._pseudo_loop
+    same = (resumed._pseudo_rounds_done == 2 and len(history) == 1
+            and torch.equal(resumed.train_data.kps, tr.train_data.kps)
+            and torch.equal(resumed.train_data.islabeled,
+                            tr.train_data.islabeled)
+            and all(np.array_equal(x.history, y.history, equal_nan=True)
+                    for x, y in zip(a.lma_int + [a.lma_ext],
+                                    b.lma_int + [b.lma_ext])))
+    if not same:
+        raise AssertionError("resume did not restore the pseudo state")
+    n_steps = len(step_ms) + len(more["steps"])
+    if launches[HS.NAME] != 2 * n_steps:
+        raise AssertionError(f"heatmap kernel launched {launches[HS.NAME]} "
+                             f"times in {n_steps} steps")
+    assert_finite("resumed epoch", *history[0].values())
+    emit({"phase": "cli_mt_ubpl_pseudo", "regime": "MT_UBPL",
+          "optimizer": "mld", "model": tr.cfg.model,
+          "dtype": tr.cfg.compute_dtype, "train_bs": tr.cfg.train_bs,
+          "train_count": tr.cfg.train_count, "unlabeled": len(unl),
+          "valid_count": tr.cfg.valid_count, "aug_views": 2,
+          "run_s": run_s, "step_ms": step_ms,
+          "steady_step_ms_median": statistics.median(step_ms[9:]),
+          "round_ms": round_ms,
+          "round_ms_per_image": [t / len(unl) for t in round_ms],
+          "rounds": [{k: r[k] for k in ("epoch", "selected", "threshold")}
+                     for r in logs],
+          "flipped_samples": flipped, "injected_joints": injected,
+          "resumed_epochs": len(history),
+          "resumed_step_ms": [t for _, t in more["steps"]],
+          "kernel_launches": launches, "kernel_launches_per_step": 2,
+          "round_kernel_launches": 0})
+    return launches
+
+
 def phase_cli_exec_quick(counts):
     """``exec --quick``: every CLI regime once on the card (HG2, 2 epochs,
     24 training images at the source's 256 -> 64)."""
@@ -755,12 +1096,15 @@ def main():
     smi = phase_env()
     records = {"heatmap_synth": phase_kernel_heatmap()}
     phase_reference()
-    paths = [phase(counts) for phase in (phase_serve, phase_train,
-                                         phase_train_mt_ubpl,
-                                         phase_train_mt)]
+    paths = [phase(counts) for phase in (phase_serve, phase_train)]
+    launches, resident_ms = phase_train_mt_ubpl(counts)
+    paths += [launches, phase_train_mt_ubpl_mld(counts),
+              phase_train_mt_ubpl_stream(counts, resident_ms),
+              phase_train_mt(counts)]
     try:
         phase_data_disk()
         paths += [phase_cli_dualpose_ubpl(counts),
+                  phase_cli_mt_ubpl_pseudo(counts),
                   phase_cli_exec_quick(counts)]
     finally:
         shutil.rmtree(SMOKE_DATA, ignore_errors=True)

@@ -277,19 +277,24 @@ def test_from_checkpoint_heads_and_best(run2):
     ("optimizer", "mld"), ("stream_data", True),
     ("torch_init", "ref.pth.tar")])
 def test_unported_config_raises(field, value):
-    """What the JAX package's loop does and the port does not do yet is
-    refused, not ignored.  debug, profile_dir and torch_init are ported
-    now: the first two are accepted, and torch_init reads its file (a
-    missing one raises FileNotFoundError)."""
+    """Every Config switch of the JAX package's loop is taken now: MT_UBPL
+    accepts pseudo_rounds, the MLD optimiser (which the single-loss
+    supervised regime refuses with a ValueError, as the JAX package does),
+    stream_data (the training set stays on the host), debug and
+    profile_dir; torch_init reads its file (a missing one raises
+    FileNotFoundError)."""
     cfg = Config(**{**KW, field: value})
     if field == "torch_init":
         with pytest.raises(FileNotFoundError, match=value):
             MTUBPLTrainer(cfg, device="cpu")
-    elif field in ("debug", "profile_dir"):
-        assert getattr(MTUBPLTrainer(cfg, device="cpu").cfg, field) == value
-    else:
-        with pytest.raises(NotImplementedError, match=field):
-            MTUBPLTrainer(cfg, device="cpu")
+        return
+    tr = MTUBPLTrainer(cfg, device="cpu")
+    assert getattr(tr.cfg, field) == value
+    if field == "optimizer":
+        with pytest.raises(ValueError, match="mld"):
+            SupervisedTrainer(Config(**{**KW, field: value}), device="cpu")
+    elif field == "stream_data":
+        assert tr.train_data is None and tr.train_host is not None
 
 
 def test_unknown_optimizer_raises():

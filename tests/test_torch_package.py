@@ -50,7 +50,10 @@ def test_import_pulls_in_no_jax():
 
 NEW_MODULES = ["__main__", "data.arrays", "data.base", "data.native_io",
                "data.occluders", "data.preview", "data.sources",
-               "train.dualpose_ubpl", "train.exec", "utils.draw",
+               "ops.features", "ops.uncertainty",
+               "train.dualpose_ubpl", "train.exec", "train.feature_pool",
+               "train.mld_optim", "train.pseudo", "train.pseudo_loop",
+               "train.streaming", "utils.draw",
                "utils.preemption", "utils.profiling", "utils.report",
                "utils.xlsx"]
 

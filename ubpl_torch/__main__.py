@@ -21,8 +21,8 @@ and `bench` regimes are not ported yet (ROADMAP A).
 import sys
 
 _NOT_PORTED = {
-    "classification": "the classification branch (ROADMAP A.7)",
-    "bench": "the port bench, bench_torch.py (ROADMAP A.3)",
+    "classification": "the classification branch (ROADMAP A.4)",
+    "bench": "the port bench, bench_torch.py (ROADMAP A.2)",
 }
 
 

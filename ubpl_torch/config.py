@@ -7,7 +7,8 @@ configures the port unchanged.
 Fields that steer only the XLA/TPU lowering (``unroll_branches``,
 ``scan_branches``, ``scan_batches``, ``donate_state``,
 ``fuse_teacher_forward``, ``mesh_shape``/``mesh_axes``) are accepted and
-ignored: they leave the math unchanged.  ``io_workers`` sets the host
+ignored: they leave the math unchanged (the trainers still refuse
+``stream_data`` with ``scan_batches > 1``, as the JAX package does).  ``io_workers`` sets the host
 decode threads of ``data.arrays``.
 """
 import dataclasses

@@ -1,6 +1,6 @@
 """PCK evaluation as fixed-shape masked reductions.
 
-Port of ``ubpl_tpu/ops/pck.py:18-48`` (reference utils/evaluation.py:92-139):
+Port of ``ubpl_tpu/ops/pck.py`` (reference utils/evaluation.py:92-139):
 
   * dists[b, k]     = ||pred - gt|| if gt_x > 1 and gt_y > 1 else -1
   * dists_ref[b, k] = dists / ||gt[ref0] - gt[ref1]||  (same -1 convention)
@@ -43,3 +43,9 @@ def acc_pck(preds, gts, pck_ref, pck_thr):
         torch.zeros((), dtype=accs_k.dtype, device=accs_k.device))
     accs = torch.cat([accs_k, acc_mean[None]])
     return errs, accs
+
+
+def acc_pck_pseudo(error, norm, pck_thr):
+    """Reference acc_pck_pseudo (``ubpl_tpu/ops/pck.py:51-53``): 1 where
+    error / norm < thr, else 0 (int32, batched)."""
+    return (error / norm < pck_thr).to(torch.int32)

@@ -3,8 +3,9 @@
 Port of ``ubpl_tpu/ops/transforms.py``: the 200px-unit crop transform
 (``get_transform_matrix``), its closed-form inverse, the integer point
 transform with the reference's ``trunc(...) + 1`` quirk, the decode-side
-inverse transform, the dataset warp matrix with its double ``1/scale``, and
-horizontal flips.
+inverse transform, the dataset warp matrix with its double ``1/scale``,
+``affine_back`` (``:284-307``, the pseudo-label rounds' warp of heatmaps
+back to the original frame) and horizontal flips.
 
 The image warp samples where the JAX training path's ``warp_images_affine``
 (``:220-257``) does: output pixel ``p`` (0-indexed) reads the source at
@@ -163,6 +164,21 @@ def affine_warpmat(angle, scale):
     zero = torch.zeros_like(cs)
     return torch.stack([torch.stack([cs, -sn, zero], -1),
                         torch.stack([sn, cs, zero], -1)], -2)
+
+
+def affine_back(heatmaps, warpmat, isflip):
+    """Reference affine_back2: warp heatmaps back through ``warpmat`` with
+    ``affine_grid`` / ``grid_sample`` semantics (``align_corners=True``,
+    zeros outside), then undo the horizontal flips.  The JAX package
+    computes the same sampling in XLA; here it is ``F.grid_sample``.
+
+    heatmaps: [B, K, H, W]; warpmat: [B, 2, 3]; isflip: [B] bool.
+    """
+    grid = F.affine_grid(warpmat.to(heatmaps.dtype), list(heatmaps.shape),
+                         align_corners=True)
+    out = F.grid_sample(heatmaps, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    return torch.where(isflip[:, None, None, None], out.flip(-1), out)
 
 
 def fliplr_images(images):

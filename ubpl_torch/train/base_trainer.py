@@ -10,15 +10,17 @@ on disk (``_setup_data``, ``:99-131``) or synthetic exactly as
 ``run_train_steps`` (``:467-487``), branch initialisation from
 ``cfg.seed + i`` (``:520-532``) with EMA teachers that start as copies of
 their students (``:29-41``), ``_validate_heads`` (``:586-606``),
-``resume`` (``:624-638``), ``run`` with ``maybe_debug_draw``, the
+``resume`` (``:624-638``), the UBPL pseudo-label rounds with their
+checkpointed state (``:640-741``: ``_ensure_pseudo_loop``,
+``_pseudo_checkpoint_meta``, ``_restore_pseudo_state``,
+``maybe_pseudo_round``), ``run`` with ``maybe_debug_draw``, the
 ``profile_dir`` trace, the preemption guard and ``_write_report``
 (``:743-837``), the ``torch_init`` warm start
 (``ubpl_tpu/models/torch_import.py:196-240``), and ``make_experiment`` /
-``run_regime`` (``:851-873``, without a device mesh: one card).
-
-Not ported yet, and refused by the constructor when the config asks for
-them: UBPL pseudo-label rounds (``pseudo_rounds``), the MLD optimiser and
-streamed datasets (``stream_data``).
+``run_regime`` (``:851-873``, without a device mesh: one card).  With
+``stream_data`` the training set stays on the host and
+``train/streaming.py`` moves each batch (``:132-141``, ``:423-497``).
+The constructor refuses what the JAX package refuses (``:57-73``).
 
 Random numbers: numpy's ``np.random.default_rng(cfg.seed)`` drives data
 and batch order (as in the JAX package); the augmentation draws come from a
@@ -50,13 +52,9 @@ from . import losses as L
 from .checkpointing import restore_checkpoint, save_checkpoint
 from .common import (make_view, put_dataset, sample_weights,
                      update_pck_counters, validate_heads_batch)
+from .pseudo_loop import PseudoLabelingLoop, round_draws
+from .streaming import BatchStreamer, StreamedBatch, host_dataset
 
-# Config fields whose feature the port does not have yet: (field, test)
-_NOT_PORTED = (
-    ("pseudo_rounds", lambda v: v > 0),
-    ("optimizer", lambda v: v == "mld"),
-    ("stream_data", bool),
-)
 _NETWORK_KEY = re.compile(r"model(\d*)(_ema)?_state")
 
 
@@ -88,15 +86,29 @@ class BaseTrainer:
     regime = "Base"
     #: names of the validated heads; "mean" is the ensemble-mean row
     valid_heads = ("model",)
+    #: dual-teacher regimes run the UBPL rounds of cfg.pseudo_rounds
+    supports_pseudo_loop = False
+    #: regimes with a primary/secondary loss split run cfg.optimizer="mld"
+    supports_mld = False
 
     def __init__(self, cfg: Config, device=None, logger=None):
         if cfg.optimizer not in ("adamw", "mld"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                              "(adamw | mld)")
-        for name, asked in _NOT_PORTED:
-            if asked(getattr(cfg, name)):
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r} is not ported yet")
+        if cfg.optimizer == "mld" and not self.supports_mld:
+            raise ValueError(
+                "optimizer='mld' needs a primary/secondary loss split; "
+                f"{self.regime} has a single loss group "
+                "(supported: MT_UBPL, DualPose_UBPL)")
+        if cfg.stream_data and cfg.scan_batches > 1:
+            raise ValueError(
+                "stream_data streams one batch per step; scan_batches>1 "
+                "gathers several batches from the device-resident dataset "
+                "per call — pick one")
+        if cfg.stream_data and cfg.pseudo_rounds > 0:
+            raise ValueError(
+                "pseudo_rounds runs UBPL selection over the device-resident "
+                "training set; stream_data keeps it on host — pick one")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = logger or Logger(f"{cfg.data_source}_{self.regime}")
@@ -115,11 +127,16 @@ class BaseTrainer:
         self.best_epoch = [0] * n
         self.epoch = 0
         self._step_num = 0
+        self._pseudo_loop = None
+        self._pseudo_rounds_done = 0
 
     # ------------------------------------------------------------------ data
     def _setup_data(self):
         """The dataset in device memory: from ``cfg.data_source`` on disk
-        (split, materialised once, the split's means), or synthetic."""
+        (split, materialised once, the split's means), or synthetic.  With
+        ``cfg.stream_data`` the training split stays on the host
+        (``train_host``, ``train_data`` None) and ``streamer`` moves its
+        batches; the validation split is on the device either way."""
         cfg = self.cfg
         if cfg.synthetic_data:
             train, valid, n_lab = synthetic_arrays(cfg)
@@ -151,9 +168,17 @@ class BaseTrainer:
         self.labeled_idxs = list(labeled)
         self.unlabeled_idxs = list(unlabeled)
         self.n_valid = len(valid["images"])
-        self.train_data = put_dataset(**train, means=means, device=self.device)
+        if cfg.stream_data:
+            self.train_host = host_dataset(train["images"], train["kps"],
+                                           train["islabeled"], self.device)
+            self.train_data = None
+            self.streamer = BatchStreamer(self.train_host, self.device)
+        else:
+            self.train_host = self.streamer = None
+            self.train_data = put_dataset(**train, means=means,
+                                          device=self.device)
         self.valid_data = put_dataset(**valid, means=means, device=self.device)
-        self.means = self.train_data.means
+        self.means = self.valid_data.means
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
@@ -173,9 +198,13 @@ class BaseTrainer:
         self.occluder_bank = (torch.as_tensor(rgb, device=self.device),
                               torch.as_tensor(alpha, device=self.device))
 
-    def fetch_batch(self, data, idxs):
-        """Gather one batch from the device-resident dataset."""
-        i = torch.as_tensor(np.asarray(idxs), device=self.device)
+    def fetch_batch(self, data, batch):
+        """One batch on the device: ``batch`` is an index list gathered
+        from the device-resident ``data``, or (``stream_data``) a
+        ``StreamedBatch`` already on its way."""
+        if isinstance(batch, StreamedBatch):
+            return batch.take()
+        i = torch.as_tensor(np.asarray(batch), device=self.device)
         return data.images[i], data.kps[i], data.islabeled[i]
 
     def augmented_view(self, imgs, kps, *, scale_range=None, rot_range=None,
@@ -279,13 +308,16 @@ class BaseTrainer:
         raise NotImplementedError
 
     def run_train_steps(self, batch_iter, *sched_args):
-        """Drive batches through ``train_step``.  Returns the per-step
-        metric dicts as device tensors; reading them (the caller's
-        reduction) is the only host sync."""
+        """Drive batches through ``train_step`` (with ``stream_data``, each
+        batch's copy issued one step ahead).  Returns the per-step metric
+        dicts as device tensors; reading them (the caller's reduction) is
+        the only host sync."""
+        if self.streamer is not None:
+            batch_iter = self.streamer.batches(batch_iter)
         metrics = []
-        for idxs in batch_iter:
+        for batch in batch_iter:
             self._step_num += 1
-            metrics.append(self.train_step(idxs, *sched_args))
+            metrics.append(self.train_step(batch, *sched_args))
         return metrics
 
     # ------------------------------------------------------------ validation
@@ -352,7 +384,106 @@ class BaseTrainer:
                          np.atleast_1d(meta.get("best_acc", self.best_acc))]
         self.best_epoch = [int(e) for e in np.atleast_1d(
             meta.get("best_epoch", self.best_epoch))]
+        self._restore_pseudo_state(meta)
         return int(meta["current_epoch"]) + 1
+
+    # --------------------------------------------------------- pseudo rounds
+    def _ensure_pseudo_loop(self):
+        """The PseudoLabelingLoop, built at first use.  It must be built
+        while ``train_data`` is pristine: it snapshots the kps / islabeled
+        before any injection as its reset baseline."""
+        if self._pseudo_loop is None:
+            cfg = self.cfg
+            self._pseudo_loop = PseudoLabelingLoop(
+                self, aug_views=cfg.pseudo_aug_views,
+                reliable_pct=cfg.pseudo_reliable_pct,
+                batch_size=cfg.infer_bs)
+        return self._pseudo_loop
+
+    def _pseudo_checkpoint_meta(self):
+        """The pseudo-round state for the checkpoint (host tensors): rounds
+        spent, the injected kps / islabeled and the LMA distance histories
+        ``[3, N, K, 3]`` (NaN where empty), so a resumed run continues from
+        the same dataset and round budget as an uninterrupted one."""
+        if self._pseudo_rounds_done == 0:
+            return {}
+        meta = {"pseudo_rounds_done": self._pseudo_rounds_done,
+                "pseudo_kps": self.train_data.kps.cpu(),
+                "pseudo_islabeled": self.train_data.islabeled.cpu()}
+        loop = self._pseudo_loop
+        if loop is not None and loop.lma_ext is not None:
+            meta["pseudo_lma"] = torch.from_numpy(np.stack(
+                [loop.lma_int[0].history, loop.lma_int[1].history,
+                 loop.lma_ext.history]))
+        return meta
+
+    def _restore_pseudo_state(self, meta):
+        """Put a checkpoint's pseudo-round state back (regimes without the
+        rounds ignore it); a dataset of another shape raises."""
+        rounds = meta.get("pseudo_rounds_done")
+        if not rounds or not self.supports_pseudo_loop:
+            return
+        kps, islabeled = meta["pseudo_kps"], meta["pseudo_islabeled"]
+        have = (tuple(self.train_data.kps.shape),
+                tuple(self.train_data.islabeled.shape))
+        if (tuple(kps.shape), tuple(islabeled.shape)) != have:
+            raise ValueError(
+                f"pseudo-state resume: checkpointed kps {tuple(kps.shape)} "
+                f"vs dataset {have[0]} — the checkpoint was written for "
+                "another training set; resume with the same data or "
+                "restart the pseudo rounds")
+        # the loop first: its reset baseline must be the pristine arrays,
+        # and train_data is still pristine here
+        loop = self._ensure_pseudo_loop()
+        self._pseudo_rounds_done = int(rounds)
+        self.train_data = self.train_data._replace(
+            kps=kps.to(self.device), islabeled=islabeled.to(self.device))
+        lma = meta.get("pseudo_lma")
+        if lma is not None and loop.lma_ext is not None:
+            lma = lma.numpy()
+            loop.lma_int[0].history = lma[0].copy()
+            loop.lma_int[1].history = lma[1].copy()
+            loop.lma_ext.history = lma[2].copy()
+        self.logger.print(
+            "L2", "resumed pseudo-round state: {} round(s) spent, "
+            "{} sample(s) in the labeled pool".format(
+                self._pseudo_rounds_done,
+                int(self.train_data.islabeled.sum())))
+
+    def maybe_pseudo_round(self, epo, base_path=None):
+        """``cfg.pseudo_rounds > 0``: one UBPL selection round every
+        ``pseudo_interval`` epochs until the budget is spent (dual-teacher
+        regimes only), its audit written to
+        ``logs/pseudoRounds/round_{epo + 1}.json``.  Returns the Selection
+        or None."""
+        cfg = self.cfg
+        if not (self.supports_pseudo_loop and cfg.pseudo_rounds > 0):
+            return None
+        if (epo + 1) % max(cfg.pseudo_interval, 1) != 0:
+            return None
+        if self._pseudo_rounds_done >= cfg.pseudo_rounds:
+            return None
+        if not self.unlabeled_idxs:
+            return None
+        loop = self._ensure_pseudo_loop()
+        sel, _ = loop.round(round_draws(cfg.seed, epo, self.device))
+        self._pseudo_rounds_done += 1
+        n_sel = int(sel.sel_counts[-1])
+        self.logger.print(
+            "L1", "[pseudo round {}/{}] selected {} kps "
+            "(sel acc: {:.4f}, sel err: {:.3f}, thr: {:.4f})".format(
+                self._pseudo_rounds_done, cfg.pseudo_rounds, n_sel,
+                float(sel.sel_accs[-1]), float(sel.sel_errs[-1]),
+                sel.threshold))
+        if base_path:
+            json_save({"epoch": epo + 1, "selected": n_sel,
+                       "threshold": sel.threshold,
+                       "sel_counts": np.asarray(sel.sel_counts).tolist(),
+                       "sel_accs": np.asarray(sel.sel_accs).tolist(),
+                       "sel_errs": np.asarray(sel.sel_errs).tolist()},
+                      f"{base_path}/logs/pseudoRounds/round_{epo + 1}.json",
+                      is_cover=True)
+        return sel
 
     def maybe_debug_draw(self, base_path, epo):
         """``cfg.debug``: dump the augmentation of the first labeled batch
@@ -363,7 +494,12 @@ class BaseTrainer:
         from ..utils.draw import DebugDrawer
         cfg = self.cfg
         idxs = np.asarray(self.labeled_idxs[:min(4, len(self.labeled_idxs))])
-        imgs, kps, _ = self.fetch_batch(self.train_data, idxs)
+        if self.train_data is not None:
+            imgs, kps, _ = self.fetch_batch(self.train_data, idxs)
+        else:       # stream_data: gather from the host arrays
+            i = torch.as_tensor(idxs)
+            imgs = self.train_host.images[i].to(self.device)
+            kps = self.train_host.kps[i].to(self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed + epo)
         view = make_view(imgs, kps, torch.zeros(3, device=self.device), cfg,
@@ -374,7 +510,8 @@ class BaseTrainer:
     def run(self, base_path=None, start_epoch=0, resume=False):
         """The epoch loop: debug drawings -> schedules -> train (under a
         profiler trace in the first epoch when ``cfg.profile_dir``) ->
-        validate -> best tracking per head -> checkpoint and JSON logs
+        validate -> a pseudo-label round when one is due -> best tracking
+        per head -> checkpoint (with the pseudo-round state) and JSON logs
         under ``base_path`` -> the epoch's log line -> stop here if a
         preemption was requested; then the report.  Returns the per-epoch
         history."""
@@ -391,6 +528,7 @@ class BaseTrainer:
                        and epo == start_epoch):
                 losses = self.train_epoch(epo, schedules)
             preds, accs, errs = self.validate()
+            self.maybe_pseudo_round(epo, base_path)
             is_best = []
             for m in range(len(self.valid_heads)):
                 flag = accs[m][-1] > self.best_acc[m]
@@ -401,7 +539,8 @@ class BaseTrainer:
                 save_checkpoint(base_path, epo, self.checkpoint_state(),
                                 is_best[-1],
                                 extra={"best_acc": self.best_acc,
-                                       "best_epoch": self.best_epoch})
+                                       "best_epoch": self.best_epoch,
+                                       **self._pseudo_checkpoint_meta()})
                 if epo == start_epoch:
                     cfg.to_json(f"{base_path}/logs/args.json")
                 json_save({**losses, "accs": accs, "errs": errs},

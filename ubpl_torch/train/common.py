@@ -63,12 +63,17 @@ def images_to_float(images_u8):
 
 
 def make_view(images_u8, kps, means, cfg, draws: Optional[A.AugmentDraws]
-              = None, *, scale_range=None, rot_range=None, occlusion=None):
+              = None, *, scale_range=None, rot_range=None, occlusion=None,
+              targets=True):
     """Build one view on the device (reference CommDataset.__getitem__
     steps 2-5): (flip, noise, affine, occlusion) -> colorNorm -> heatmap
     targets with the visibility re-gate -> warpmat.  ``draws=None`` builds
     the un-augmented view.  ``occlusion``: None, or (bank rgb, bank alpha,
-    ``A.OcclusionDraws``) to paste occluders after the affine warp."""
+    ``A.OcclusionDraws``) to paste occluders after the affine warp.
+    ``targets=False`` skips the target synthesis (no kernel launch): the
+    view's ``heatmaps`` and ``gate`` are None and its ``kps`` are the
+    augmented keypoints without the re-gate (the pseudo-label rounds' views,
+    whose targets nothing reads)."""
     B, inp = images_u8.shape[0], cfg.inp_res
     dev = images_u8.device
     imgs = images_to_float(images_u8)
@@ -91,6 +96,9 @@ def make_view(images_u8, kps, means, cfg, draws: Optional[A.AugmentDraws]
         isflip = torch.zeros((B,), dtype=torch.bool, device=dev)
         warpmat = torch.eye(2, 3, device=dev).expand(B, 2, 3)
     imgs = A.color_normalize(imgs, means)
+    if not targets:
+        return ViewBatch(imgs, None, kps, None, warpmat, isflip, center,
+                         scale, angle)
     heatmaps, kps_new = heatmap_synth.synthesize_heatmaps(
         kps.contiguous(), inp_res=inp, out_res=cfg.out_res)
     return ViewBatch(imgs, heatmaps, kps_new, kps_new[..., 2], warpmat,

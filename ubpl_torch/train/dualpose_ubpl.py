@@ -16,7 +16,8 @@ student view, then
   FDC  feature decorrelation between the students (when the FDL weights
        are not both 0), counted twice as in MT_UBPL
 
-one backward, AdamW over both students and the EMA.  ``dualpose`` is the
+one backward (two, combined by the MLD surgery, for ``optimizer="mld"``),
+AdamW over both students and the EMA.  ``dualpose`` is the
 same trainer with FDL off and no EPC (``ubpl_tpu/__main__.py:63-67``).
 ``Config.fuse_teacher_forward`` stacks the four forwards into one XLA
 program in the JAX package and leaves the values unchanged; it is ignored
@@ -27,7 +28,8 @@ import torch
 from . import losses as L
 from .base_trainer import run_regime
 from .common import sample_weights
-from .mt_ubpl import MTUBPLTrainer, _forward_views, _weighted, optimize_and_ema
+from .mt_ubpl import (MTUBPLTrainer, _forward_views, _weighted, loss_groups,
+                      optimize_and_ema)
 
 
 def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
@@ -85,8 +87,9 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
         fdc = fdl_weight * torch.where(fdc_count > 0,
                                        c / fdc_count.clamp(min=1), c)
 
-    optimize_and_ema(students, teachers, optimizer,
-                     pec.sum() + (mtc + epc).sum() + 2.0 * fdc, ema_alpha)
+    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
+    optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
+                     mld_alpha)
     return {"pec": pec.detach(), "pec_count": sums["pec_n"],
             "mtc": mtc.detach(), "mtc_count": sums["mtc_n"],
             "epc": epc.detach(), "epc_count": sums["epc_n"],

@@ -20,7 +20,9 @@ single-branch MT regime (``train/mean_teacher.py``).  Per step: one
 ``draw_augment`` + ``make_view`` per view (2 heatmap-kernel launches), the
 teachers' train-mode forwards under ``no_grad``, the students' forwards,
 one backward, one AdamW step over both students, then the EMA — with no
-host sync: every metric stays a device tensor.
+host sync: every metric stays a device tensor.  With ``optimizer="mld"``
+the backward is two pullbacks, PEC and the rest (``loss_groups``), combined
+by the MLD gradient surgery (``train/mld_optim.py``) before AdamW.
 """
 import torch
 
@@ -28,6 +30,7 @@ from . import losses as L
 from . import schedules as S
 from .base_trainer import BaseTrainer, run_regime
 from .common import forward_heatmaps, sample_weights
+from .mld_optim import mld_combine, mld_gradients
 
 
 def _forward_views(model, views, cfg, remat=False):
@@ -53,18 +56,41 @@ def _weighted(sums, counts, w):
     return w * torch.where(counts > 0, sums / counts.clamp(min=1), sums)
 
 
-def optimize_and_ema(students, teachers, optimizer, total, ema_alpha):
-    """Backward of ``total``, one optimiser step over the students, then
-    each teacher's parameters (not its BatchNorm stats) move to
-    ``ema_alpha * teacher + (1 - ema_alpha) * student``."""
+def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
+                     mld_alpha=None):
+    """One optimiser step over the students, then each teacher's
+    parameters (not its BatchNorm stats) move to ``ema_alpha * teacher +
+    (1 - ema_alpha) * student``.
+
+    ``loss`` is the summed loss (one backward), or with ``mld_alpha`` set
+    (``Config.optimizer="mld"``) the pair (primary, secondary): their two
+    gradients over the students' parameters are combined by
+    ``mld_optim.mld_combine`` and written into ``.grad``."""
     optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    if mld_alpha is None:
+        loss.backward()
+    else:
+        params = [p for s in students for p in s.parameters()]
+        g_pri, g_sec = mld_gradients(*loss, params)
+        for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha)):
+            p.grad = g
     optimizer.step()
     with torch.no_grad():
         ema = [p for t in teachers for p in t.parameters()]
         new = [p for s in students for p in s.parameters()]
         torch._foreach_mul_(ema, ema_alpha)
         torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
+
+
+def loss_groups(pec, mtc, epc, fdc, cfg):
+    """The step's loss for ``optimize_and_ema``: PEC is the primary group,
+    MTC + EPC + 2 x FDC the secondary (``ubpl_tpu/train/mt_ubpl.py:
+    205-206``); summed for AdamW, a pair with the MLD weight for
+    ``optimizer="mld"``.  Returns (loss, mld_alpha)."""
+    pri, sec = pec.sum(), (mtc + epc).sum() + 2.0 * fdc
+    if cfg.optimizer == "mld":
+        return (pri, sec), float(cfg.mld_alpha)
+    return pri + sec, None
 
 
 def teacher_student_step(students, teachers, optimizer, views, islabeled,
@@ -134,8 +160,9 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
                                        fdc_sum / fdc_count.clamp(min=1),
                                        fdc_sum)
 
-    optimize_and_ema(students, teachers, optimizer,
-                     pec.sum() + (mtc + epc).sum() + 2.0 * fdc, ema_alpha)
+    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
+    optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
+                     mld_alpha)
     return {"pec": pec.detach(), "pec_count": sums["pec_n"],
             "mtc": mtc.detach(), "mtc_count": sums["mtc_n"],
             "epc": epc.detach(), "epc_count": sums["epc_n"],
@@ -157,6 +184,8 @@ class MTUBPLTrainer(BaseTrainer):
     regime = "MT_UBPL"
     valid_heads = ("teacher1", "teacher2", "mean")
     n_models = 2
+    supports_pseudo_loop = True     # cfg.pseudo_rounds > 0: UBPL rounds
+    supports_mld = True             # primary PEC, secondary MTC+EPC+2*FDC
 
     @property
     def n_views(self):
