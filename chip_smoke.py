@@ -43,7 +43,20 @@ width through their user entry points:
     rounds' views skip target synthesis, so only the steps launch the
     kernel;
   * cli_exec_quick: ``python -m ubpl_torch exec --quick`` on the same tree:
-    all five regimes, 2 epochs each, HG2 (the depth cut), 24 images.
+    all five regimes, 2 epochs each, HG2 (the depth cut), 24 images;
+  * train_classification: ``ClassificationTrainer`` in ``mt_ubpl`` mode,
+    ResNet18 at its published widths, bf16, bs 128 = 96 + 32, CIFAR-10's
+    shapes (50,000 + 10,000 seeded images), one epoch of 32 steps on a
+    4096-image split and a validation over the 10,000 (+profile); then one
+    epoch of ``supervised`` x VGG11 and of ``mt`` x MobileNet;
+  * classification_fp32: ResNet18 and MobileNet in fp32 on the card
+    against the CPU, eval and train mode;
+  * litepose: LitePose (K=9, 256x256, bs 32, bf16) eval forward and
+    train-mode forward + backward, and an fp32 forward against the CPU;
+  * cli_classification: ``python -m ubpl_torch classification
+    --mode=mt_ubpl`` on a CIFAR-10 tree in torchvision's layout written
+    under ``chiprun_out/smoke_data``, 2 epochs.  The classification and
+    LitePose paths launch no heatmap kernel.
 
 The SSL training phases are followed by a ``torch.profiler`` window over a
 few more steps (device busy time, idle share, device time by kind).
@@ -807,7 +820,8 @@ def observe(*classes, method="train_step"):
             t0 = time.perf_counter()
             out = fn(self, *args, **kw)
             torch.cuda.synchronize()
-            seen["steps"].append((cls.regime, (time.perf_counter() - t0) * 1e3))
+            seen["steps"].append((getattr(cls, "regime", cls.__name__),
+                                  (time.perf_counter() - t0) * 1e3))
             seen["results"].append(out)
             seen["trainer"] = self
             return out
@@ -1068,6 +1082,294 @@ def phase_cli_exec_quick(counts):
     return launches
 
 
+# ------------------------------------------------- classification, LitePose
+class ClassSteps:
+    """``run_train_steps`` over a ClassificationTrainer's ``train_step``
+    (the interface ``profile_steps`` drives)."""
+
+    def __init__(self, tr):
+        self.tr = tr
+
+    def run_train_steps(self, batches, *sched):
+        return [self.tr.train_step(idxs, *sched) for idxs in batches]
+
+
+def cifar_like(n_train, n_valid, seed=0):
+    """uint8 32x32x3 images and labels of 10 classes, from the seed."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n_train, 32, 32, 3), dtype=np.uint8),
+            rng.integers(0, 10, n_train),
+            rng.integers(0, 256, (n_valid, 32, 32, 3), dtype=np.uint8),
+            rng.integers(0, 10, n_valid))
+
+
+def class_epoch(mode, model, arrays, phase, counts, **kw):
+    """One epoch of ``ClassificationTrainer(mode)`` on ``arrays`` under the
+    epoch-1 schedules (EMA weight 0.5), each step timed; then checks: the
+    mode's losses finite, no heatmap kernel launched, every EMA teacher
+    apart from its student, and a validation accuracy in [0, 1].  Returns
+    (trainer, step ms, losses, accuracy, validation ms, the epoch's peak
+    GB)."""
+    import torch
+    from ubpl_torch.config import Config
+    from ubpl_torch.data.cifar import CIFAR10Data
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.classification import ClassificationTrainer
+    cfg = Config(**{**dict(model=model, data_source="cifar10",
+                           feature_mode="AvgPool", compute_dtype="bfloat16",
+                           label_ratio=0.25, train_bs=128,
+                           train_bs_labeled=32, infer_bs=500,
+                           cache_dir=os.path.join(BUILD, "smoke_cache",
+                                                  phase)), **kw})
+    tr = ClassificationTrainer(cfg, mode, datasource=CIFAR10Data.from_arrays(
+        *arrays, cache_dir=cfg.cache_dir, seed=cfg.seed), device="cuda")
+    counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with observe(ClassificationTrainer) as seen:
+        losses = tr.train_epoch(1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = tr.validate()
+    valid_ms = (time.perf_counter() - t0) * 1e3
+    if counts.read()[HS.NAME] != 0:
+        raise AssertionError(f"{phase}: the heatmap kernel was launched")
+    keys = {"supervised": {"ce"}, "mt": {"ce", "cons"},
+            "mt_ubpl": {"ce", "cons", "pseudo", "fdl"}}[mode]
+    if set(losses) != keys:
+        raise AssertionError(f"{phase}: losses {sorted(losses)}")
+    for m in seen["results"]:
+        assert_finite(f"{phase} step metric", *(v.item() for v in m.values()))
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{phase}: accuracy {acc}")
+    if any(same_parameters(s, t) for s, t in zip(tr.students, tr.teachers)):
+        raise AssertionError(f"{phase}: a teacher equals its student")
+    return tr, [t for _, t in seen["steps"]], losses, acc, valid_ms, peak_gb
+
+
+def phase_train_classification(counts):
+    """The classification branch at full width: ResNet18 (published
+    widths) in ``mt_ubpl`` mode (two students, two EMA teachers, AvgPool
+    feature tap), bf16, bs 128 = 96 unlabeled + 32 labeled, on CIFAR-10's
+    shapes: 50,000 + 10,000 seeded images, a 4096-image training split at
+    label ratio 0.25 (one epoch: 32 steps) and all 10,000 validation
+    images; then a profiler window over 3 more steps.  Then one epoch of
+    ``supervised`` x VGG11 and of ``mt`` x MobileNet at 1024 images, so
+    that every family and mode runs on the card."""
+    import torch
+    from ubpl_torch.data.sampler import TwoStreamBatchSampler
+    from ubpl_torch.train import schedules as S
+    arrays = cifar_like(50000, 10000)
+    tr, step_ms, losses, acc, valid_ms, peak_gb = class_epoch(
+        "mt_ubpl", "ResNet", arrays, "train_classification", counts,
+        train_count=4096, valid_count=10000)
+    if len(step_ms) != 32:
+        raise AssertionError(f"{len(step_ms)} steps, not 32")
+    steady = statistics.median(step_ms[1:])
+    emit({"phase": "train_classification", "mode": "mt_ubpl",
+          "model": "ResNet18", "dtype": tr.cfg.compute_dtype,
+          "train_bs": tr.cfg.train_bs,
+          "train_bs_labeled": tr.cfg.train_bs_labeled,
+          "dataset_images": len(arrays[0]) + len(arrays[2]),
+          "train_count": tr.cfg.train_count,
+          "valid_count": tr.cfg.valid_count,
+          "bytes_on_card": sum(t.numel() * t.element_size() for t in (
+              tr.train_images, tr.valid_images)),
+          "steps": len(step_ms), "step_ms": step_ms,
+          "steady_step_ms_median": steady,
+          "images_per_s": tr.cfg.train_bs / steady * 1e3,
+          "peak_memory_gb": peak_gb, "losses": losses, "valid_acc": acc,
+          "valid_ms": valid_ms, "kernel_launches": counts.read()})
+    cfg = tr.cfg
+    sched = (S.cons_weight(1, cfg.cons_weight_max, cfg.cons_weight_min,
+                           cfg.cons_weight_rampup),
+             S.pseudo_weight(1, cfg.pseudo_weight_max, cfg.pseudo_weight_min,
+                             cfg.pseudo_weight_rampup), S.ema_alpha(1))
+    batches = list(TwoStreamBatchSampler(
+        tr.unlabeled_idxs, tr.labeled_idxs, cfg.train_bs,
+        cfg.train_bs_labeled, tr.rng))[:3]
+    profile_steps("train_classification_profile", ClassSteps(tr), batches,
+                  sched, steady)
+    del tr
+    torch.cuda.empty_cache()
+    small = cifar_like(1024, 1000, seed=1)
+    for mode, model in (("supervised", "VGG"), ("mt", "MobileNet")):
+        tr, step_ms, losses, acc, valid_ms, _ = class_epoch(
+            mode, model, small, f"train_classification_{mode}", counts,
+            train_count=1024, valid_count=1000)
+        emit({"phase": f"train_classification_{mode}", "mode": mode,
+              "model": tr.cfg.model, "steps": len(step_ms),
+              "step_ms": step_ms, "losses": losses, "valid_acc": acc,
+              "valid_ms": valid_ms})
+    return counts.read()
+
+
+def close_on_cpu(what, net, x, train, rtol=1e-4, atol=1e-4):
+    """The same module with the same weights on the card (fp32, TF32 off)
+    and on the CPU: every output within rtol / atol.  Returns the max abs
+    difference."""
+    import copy
+    import torch
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(net).to(dev).train(train)
+        with torch.no_grad():
+            out = m(x.to(dev))
+        outs.append([o.float().cpu().numpy() for o in flatten(out)])
+    err = 0.0
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=what)
+        err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def flatten(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flatten(o)]
+    return [out]
+
+
+def phase_classification_fp32():
+    """ResNet18 and MobileNet (AvgPool tap), eval and train-mode forwards
+    of 32 images in fp32 with TF32 off on the card, against the same
+    module with the same weights on the CPU: logits and features within
+    rtol 1e-4 / atol 1e-4."""
+    import torch
+    from ubpl_torch.models import create_class_model
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (32, 3, 32, 32)).astype(np.float32))
+    errs = {}
+    for model in ("ResNet", "MobileNet"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1388)
+            net = create_class_model(model, 10, "AvgPool")
+        for train in (False, True):
+            errs[f"{model}-{'train' if train else 'eval'}"] = close_on_cpu(
+                model, net, x, train)
+    emit({"phase": "classification_fp32", "dtype": "float32",
+          "batch": 32, "max_abs_err": errs})
+
+
+def phase_litepose():
+    """LitePose (K=9, AvgPool tap) at 256x256, bs 32, bf16 on the card: an
+    eval forward and a train-mode forward + backward, timed; the output
+    shapes [32, 9, 64, 64], [32, 9, 128, 128] and the feature
+    [32, 1, 9, 32, 32], all finite; then an fp32 eval forward of 4 images
+    held to the CPU's with the same weights (rtol 1e-4 / atol 1e-4)."""
+    import torch
+    from ubpl_torch.device import autocast
+    from ubpl_torch.models import create_pose_model, param_count
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1388)
+        net = create_pose_model("LitePose", 9, "AvgPool")
+    net = net.to("cuda", memory_format=torch.channels_last)
+    x = torch.as_tensor(np.random.default_rng(3).uniform(
+        -0.5, 0.5, (32, 3, 256, 256)).astype(np.float32), device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    dev = torch.device("cuda")
+
+    def forward(train):
+        net.train(train)
+        with autocast(dev, "bfloat16"):
+            return net(x)
+
+    with torch.no_grad():
+        (o1, o2), feat = forward(False)
+    shapes = [list(t.shape) for t in (o1, o2, feat)]
+    if shapes != [[32, 9, 64, 64], [32, 9, 128, 128], [32, 1, 9, 32, 32]]:
+        raise AssertionError(f"LitePose shapes {shapes}")
+    assert_finite("LitePose outputs", *(t.float().cpu().numpy()
+                                        for t in (o1, o2, feat)))
+
+    def train_step():
+        (a, b), f = forward(True)
+        (a.float().square().mean() + b.float().square().mean()
+         + f.float().mean()).backward()
+
+    train_step()
+    grads = [p.grad for p in net.parameters()]
+    if any(g is None for g in grads):
+        raise AssertionError("a LitePose parameter got no gradient")
+    assert_finite("LitePose gradients", *(g.float().norm().item()
+                                          for g in grads))
+    with torch.no_grad():
+        eval_ms = cuda_median_ms(lambda: forward(False), reps=5, inner=5)
+    train_ms = cuda_median_ms(train_step, reps=5, inner=3)
+    err = close_on_cpu("LitePose fp32", net, x[:4], False)
+    emit({"phase": "litepose", "k": 9, "inp_res": 256, "batch": 32,
+          "dtype": "bfloat16", "params": param_count(net),
+          "shapes": shapes, "eval_forward_ms": eval_ms,
+          "train_forward_backward_ms": train_ms,
+          "fp32_vs_cpu_max_abs_err": err})
+
+
+def write_cifar10_tree(root, per_file=1000, seed=0):
+    """CIFAR-10 in torchvision's layout under ``root``:
+    cifar10(Classification)/data/cifar-10-batches-py/data_batch_1..5 and
+    test_batch, ``per_file`` seeded images each (uint8 [N, 3072] CHW rows
+    under b"data", labels under b"labels")."""
+    import pickle
+    base = os.path.join(root, "cifar10(Classification)", "data",
+                        "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (per_file, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, per_file).tolist()},
+                        f)
+
+
+def phase_cli_classification(counts):
+    """``python -m ubpl_torch classification --mode=mt_ubpl --model=VGG``
+    in-process on a CIFAR-10 tree in torchvision's layout (6 x 1,000
+    seeded images): 2048 training images at label ratio 0.25, 1,000
+    validation images, 2 epochs of 16 steps; exit 0,
+    logs/classification.json with two history entries, the split cache."""
+    import torch
+    from ubpl_torch.__main__ import main
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.train.classification import ClassificationTrainer
+    write_cifar10_tree(SMOKE_DATA)
+    exp = os.path.join(BUILD, "cli_classification")
+    cache = os.path.join(BUILD, "smoke_cache", "cli_classification")
+    shutil.rmtree(exp, ignore_errors=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    counts.reset()
+    t0 = time.perf_counter()
+    with observe(ClassificationTrainer) as seen:
+        rc = main(["classification", "--mode=mt_ubpl", "--model=VGG",
+                   "--data_source=cifar10", f"--data_root={SMOKE_DATA}",
+                   "--train_count=2048", "--valid_count=1000",
+                   "--label_ratio=0.25", "--train_bs=128",
+                   "--train_bs_labeled=32", "--epochs=2",
+                   f"--experiment_root={exp}", f"--cache_dir={cache}"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    if counts.read()[HS.NAME] != 0:
+        raise AssertionError("the classification CLI launched the heatmap "
+                             "kernel")
+    with open(os.path.join(cli_run_dir(exp), "logs",
+                           "classification.json")) as f:
+        log = json.load(f)
+    if len(log["history"]) != 2 or set(log) != {"history", "best_acc",
+                                                "best_epoch"}:
+        raise AssertionError(f"classification.json: {log}")
+    for h in log["history"]:
+        assert_finite("classification.json", *h.values())
+    if os.listdir(cache) != ["cifar10_2048_1000_0.25.json"]:
+        raise AssertionError(f"split cache: {os.listdir(cache)}")
+    step_ms = [t for _, t in seen["steps"]]
+    emit({"phase": "cli_classification", "mode": "mt_ubpl",
+          "model": "VGG11", "run_s": run_s, "steps": len(step_ms),
+          "steady_step_ms_median": statistics.median(step_ms[1:]),
+          "history": log["history"], "best_acc": log["best_acc"]})
+    return counts.read()
+
+
 class Counts:
     """Reset and read the launch counters of every port kernel."""
 
@@ -1102,10 +1404,14 @@ def main():
               phase_train_mt_ubpl_stream(counts, resident_ms),
               phase_train_mt(counts)]
     try:
+        paths.append(phase_train_classification(counts))
+        phase_classification_fp32()
+        phase_litepose()
         phase_data_disk()
         paths += [phase_cli_dualpose_ubpl(counts),
                   phase_cli_mt_ubpl_pseudo(counts),
-                  phase_cli_exec_quick(counts)]
+                  phase_cli_exec_quick(counts),
+                  phase_cli_classification(counts)]
     finally:
         shutil.rmtree(SMOKE_DATA, ignore_errors=True)
     for name, rec in records.items():

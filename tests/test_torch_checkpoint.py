@@ -19,7 +19,9 @@ import torch
 from ubpl_torch.config import Config
 from ubpl_torch.infer import PoseEstimator
 from ubpl_torch.models import create_pose_model
-from ubpl_torch.models.weights import load_reference_checkpoint, load_state
+from ubpl_torch.models.weights import (export_reference_state,
+                                       load_reference_checkpoint, load_state,
+                                       port_state_from_reference)
 from ubpl_torch.train import checkpointing as CK
 from ubpl_torch.train.mean_teacher import MeanTeacherTrainer
 from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
@@ -115,13 +117,15 @@ def test_checkpoint_layout(run2):
 
 
 def test_restore_gives_back_the_state(run2):
-    """save -> restore: every network's state_dict and the optimiser's
-    moments come back identical."""
+    """save -> restore: every network's state_dict (in the reference layout
+    the checkpoint holds) and the optimiser's moments come back
+    identical."""
     tr = run2["trainer"]
     state, meta = CK.restore_checkpoint(run2["base"])
     assert meta["current_epoch"] == 1
     for key, net in tr.networks.items():
-        _same_state(state[key], net.state_dict())
+        _same_state(state[key], export_reference_state(net))
+        _same_state(port_state_from_reference(state[key]), net.state_dict())
     want = tr.optimizer.state_dict()
     assert state["optim_state"]["param_groups"] == want["param_groups"]
     for i, s in want["state"].items():
@@ -188,6 +192,60 @@ def test_written_file_loads_as_reference_checkpoint(run2, branch, head):
     assert meta["source_key"] == key and meta["current_epoch"] == 1
     _same_state(sd, run2["trainer"].networks[key].state_dict())
     load_state(create_pose_model("HG1", K), sd)
+
+
+# ------------------------------------------------- the reference's layout
+@pytest.fixture(scope="module")
+def hg2_state():
+    """checkpoint_state() of an MT_UBPL trainer at HG2, K=5."""
+    tr = MTUBPLTrainer(Config(**{**KW, "model": "HG2"}), device="cpu")
+    return tr, tr.checkpoint_state()
+
+
+def test_checkpoint_has_the_reference_keys_at_hg2(goldens, hg2_state):
+    """Each network of a port checkpoint at HG2, K=5 has exactly the keys,
+    in the same order, shapes and dtypes of the reference state_dict in
+    tests/goldens/torch_import_hg2.npz (742: the dead same-width skip
+    convs and the num_batches_tracked counters filled in), so the
+    reference's strict load_state_dict takes it."""
+    g = goldens("torch_import_hg2")
+    want = [(k[4:], g[k].shape, g[k].dtype) for k in g.files
+            if k.startswith("sd::")]
+    assert len(want) == 742
+    tr, state = hg2_state
+    assert set(state) == set(tr.networks) | {"optim_state"}
+    for key in tr.networks:
+        got = [(k, tuple(v.shape), v.numpy().dtype)
+               for k, v in state[key].items()]
+        assert got == want, key
+
+
+def test_checkpoint_weights_equal_export_hourglass(hg2_state):
+    """The exported weights equal ubpl_tpu's export_hourglass of the same
+    weights carried across (import_hourglass): live tensors, zero dead skip
+    convs and zero counters; port_state_from_reference gives back the
+    network's state_dict exactly."""
+    from ubpl_tpu.models.torch_import import (export_hourglass,
+                                              import_hourglass)
+    tr, state = hg2_state
+    net = tr.networks["model2_ema_state"]
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    want = export_hourglass(*import_hourglass(sd, 2), 2)
+    got = state["model2_ema_state"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    assert any(".skip_layer." in k and not got[k].any() for k in got)
+    _same_state(port_state_from_reference(got), net.state_dict())
+
+
+def test_export_keeps_the_convone_projection():
+    """The port-only ConvOne projection (``project.*``) stays in the
+    export, and the export reads back through the same filter."""
+    net = create_pose_model("HG1", K, "ConvOne")
+    sd = export_reference_state(net)
+    assert {"project.0.conv.weight", "project.0.conv.bias"} <= set(sd)
+    _same_state(port_state_from_reference(sd), net.state_dict())
 
 
 # ------------------------------------------------------------------ resume

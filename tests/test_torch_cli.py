@@ -144,13 +144,11 @@ def test_exec_runs_every_regime_over_the_grid(monkeypatch, quick):
 
 
 @pytest.mark.parametrize("regime,says", [
-    ("classification", "not ported yet: the classification branch "
-                       "(ROADMAP A.4)"),
     ("bench", "not ported yet: the port bench, bench_torch.py (ROADMAP A.2)"),
     ("nope", "unknown regime 'nope'")])
 def test_regimes_not_ported_exit_nonzero(regime, says, capsys):
-    """classification and bench name their ROADMAP items; an unknown
-    regime prints the usage; both exit non-zero."""
+    """bench names its ROADMAP item; an unknown regime prints the usage;
+    both exit non-zero."""
     assert CLI.main([regime]) != 0
     out = capsys.readouterr()
     assert says in out.out + out.err

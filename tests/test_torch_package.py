@@ -48,12 +48,16 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-NEW_MODULES = ["__main__", "data.arrays", "data.base", "data.native_io",
-               "data.occluders", "data.preview", "data.sources",
-               "ops.features", "ops.uncertainty",
+NEW_MODULES = ["__main__", "data.arrays", "data.base", "data.cifar",
+               "data.native_io", "data.occluders", "data.preview",
+               "data.sources", "models.classification",
+               "models.classification.mobilenet",
+               "models.classification.resnet", "models.classification.vgg",
+               "models.init_strategies", "models.litepose",
+               "ops.features", "ops.uncertainty", "train.classification",
                "train.dualpose_ubpl", "train.exec", "train.feature_pool",
                "train.mld_optim", "train.pseudo", "train.pseudo_loop",
-               "train.streaming", "utils.draw",
+               "train.streaming", "utils.comm", "utils.draw",
                "utils.preemption", "utils.profiling", "utils.report",
                "utils.xlsx"]
 

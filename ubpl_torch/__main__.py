@@ -1,9 +1,11 @@
 """CLI: python -m ubpl_torch <regime> [--key=value ...]
 
 Regimes: supervised | mt | mt_ubpl | dualpose | dualpose_ubpl | exec |
-preview
+classification | preview
 (`exec` runs the reference's full sweep grid, projects/exec.py equivalent;
-`exec --quick` a 2-epoch HG2 smoke of all five regimes over Mouse).
+`exec --quick` a 2-epoch HG2 smoke of all five regimes over Mouse;
+`classification --mode=supervised|mt|mt_ubpl` the CIFAR branch, e.g.
+`--model=ResNet --data_source=cifar10`).
 
 `--device=cuda|cpu` picks the device; without it the port runs on the CUDA
 card and stops if there is none.  Other keys map to
@@ -12,16 +14,17 @@ ubpl_torch.config.Config fields (or reference argparse aliases), e.g.:
         --train_count=100 --label_ratio=0.3 --epochs=100
 
 Datasets are read in the reference's layout under --data_root, e.g.
-{data_root}/pose/mouse/croppeds_bbox/{labels_normal.json,images/*.png}.
-Runs write to {experiment_root}/<experiment>/: ckpts/, logs/.
+{data_root}/pose/mouse/croppeds_bbox/{labels_normal.json,images/*.png} or
+{data_root}/cifar10(Classification)/data/cifar-10-batches-py/ (torchvision's
+pickled batches).  Runs write to {experiment_root}/<experiment>/: ckpts/,
+logs/ (classification: logs/classification.json).
 
-The port's counterpart of ``ubpl_tpu/__main__.py``; its `classification`
-and `bench` regimes are not ported yet (ROADMAP A).
+The port's counterpart of ``ubpl_tpu/__main__.py``; its `bench` regime is
+not ported yet (ROADMAP A).
 """
 import sys
 
 _NOT_PORTED = {
-    "classification": "the classification branch (ROADMAP A.4)",
     "bench": "the port bench, bench_torch.py (ROADMAP A.2)",
 }
 
@@ -76,6 +79,9 @@ def main(argv=None):
         quick = "quick" in params
         params.pop("quick", None)
         exec_home(extra=params, device=device, quick=quick)
+    elif regime == "classification":
+        from ubpl_torch.train.classification import exec_regime
+        exec_regime("Classification", params, device)
     elif regime == "preview":
         from ubpl_torch.data.preview import main as preview_main
         preview_main(params)

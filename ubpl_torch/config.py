@@ -31,7 +31,8 @@ def parse_axis_spec(value, cast=int) -> Tuple:
 @dataclass
 class Config:
     # Model
-    model: str = "HG3"                  # HG3 | HG2 (LitePose not ported yet)
+    model: str = "HG3"                  # HG{n} | LitePose; classification:
+                                        # VGG* | ResNet* | MobileNet
     feature_mode: str = "AvgPool"       # default | MaxPool | AvgPool | ConvOne
     br_num: int = 2
     br_aug_num: int = 1

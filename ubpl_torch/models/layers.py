@@ -7,11 +7,18 @@ the reference checkpoints' keys.  The reference's dead same-width skip
 convs (created but never run when ``inp_dim == out_dim``) are left out.
 
 Initialisation is PyTorch's default, which the JAX package copies
-(uniform(+-1/sqrt(fan_in)) for conv kernels and biases).
+(uniform(+-1/sqrt(fan_in)) for conv kernels and biases).  Where the JAX
+package keeps flax's own defaults (the classification nets' ``nn.Dense``
+heads and VGG's conv biases, LitePose's ``nn.ConvTranspose``), ``Dense``,
+``flax_truncated_normal_`` and ``ConvTranspose`` draw from the same
+distributions.
 """
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# std of N(0, 1) truncated to [-2, 2] (flax variance_scaling's correction)
+_TRUNC_STD = 0.87962566103423978
 
 
 class BatchNorm(nn.Module):
@@ -136,3 +143,46 @@ class Merge(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+
+def flax_truncated_normal_(tensor, std, generator=None):
+    """flax ``variance_scaling(..., "truncated_normal")``: N(0, 1) truncated
+    to [-2, 2], scaled so that the result's std is ``std``."""
+    s = std / _TRUNC_STD
+    return nn.init.trunc_normal_(tensor, 0.0, s, -2.0 * s, 2.0 * s,
+                                 generator=generator)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` defaults: lecun_normal kernel (truncated normal,
+    variance 1/fan_in), zero bias."""
+
+    def reset_parameters(self):
+        flax_truncated_normal_(self.weight, self.in_features ** -0.5)
+        nn.init.zeros_(self.bias)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(features, (k, k), strides=(2, 2),
+    padding="SAME", use_bias=False)`` for an even k.
+
+    ``lax.conv_transpose`` pads the 2x-dilated input by k/2 on each side
+    and correlates it with the kernel as stored (no flip): that is
+    ``ConvTranspose2d(padding=k/2 - 1)`` with the kernel flipped in both
+    spatial axes (``models/weights.py`` flips it when carrying flax
+    weights).  Kernels are drawn as the JAX package's
+    ``torch_kernel_init`` does on flax's [k, k, in, out] kernel:
+    uniform(+-1/sqrt(k * k * in)); ``nn.ConvTranspose2d``'s own default
+    would take the fan from ``out``."""
+
+    def __init__(self, inp_dim, out_dim, kernel_size):
+        if kernel_size % 2:
+            raise ValueError("SAME transposed conv at stride 2 needs an "
+                             f"even kernel, not {kernel_size}")
+        super().__init__(inp_dim, out_dim, kernel_size, stride=2,
+                         padding=kernel_size // 2 - 1, bias=False)
+
+    def reset_parameters(self):
+        bound = (self.in_channels * self.kernel_size[0]
+                 * self.kernel_size[1]) ** -0.5
+        nn.init.uniform_(self.weight, -bound, bound)

@@ -42,7 +42,9 @@ from ..data.sampler import TwoStreamBatchSampler, valid_batches
 from ..data.sources import get_datasource
 from ..device import memory_format, resolve_device
 from ..models import create_pose_model
-from ..models.weights import load_reference_checkpoint, load_state
+from ..models.weights import (export_reference_state,
+                              load_reference_checkpoint, load_state,
+                              port_state_from_reference)
 from ..ops import augment as A
 from ..utils import Logger, json_save
 from ..utils.preemption import PreemptionGuard
@@ -366,8 +368,11 @@ class BaseTrainer:
                   f"err: {errs[-1][-1]:.3f}")
 
     def checkpoint_state(self):
-        """The regime's state in the reference checkpoint layout."""
-        state = {k: m.state_dict() for k, m in self.networks.items()}
+        """The regime's state in the reference checkpoint layout, each
+        network with the keys the reference's strict load requires
+        (``export_reference_state``)."""
+        state = {k: export_reference_state(m)
+                 for k, m in self.networks.items()}
         state["optim_state"] = self.optimizer.state_dict()
         return state
 
@@ -378,7 +383,7 @@ class BaseTrainer:
         if state is None:
             return 0
         for key, net in self.networks.items():
-            net.load_state_dict(state[key])
+            net.load_state_dict(port_state_from_reference(state[key]))
         self.optimizer.load_state_dict(state["optim_state"])
         self.best_acc = [float(a) for a in
                          np.atleast_1d(meta.get("best_acc", self.best_acc))]

@@ -10,7 +10,9 @@ one ``torch.save`` dict per checkpoint,
 
 holding ``current_epoch``, the regime's networks under the reference keys
 (``model_state``; ``model_state`` + ``model_ema_state``;
-``model{1,2}_state`` + ``model{1,2}_ema_state``), ``optim_state`` and the
+``model{1,2}_state`` + ``model{1,2}_ema_state``) in the reference's own
+layout (``models/weights.py:export_reference_state``, so the reference's
+strict ``load_state_dict`` takes them), ``optim_state`` and the
 metadata (``best_acc``, ``best_epoch``; after a pseudo-label round also
 ``pseudo_rounds_done``, ``pseudo_kps``, ``pseudo_islabeled`` and
 ``pseudo_lma`` as tensors).  Each file is written under a

@@ -4,7 +4,8 @@ construction with target synthesis, forward, validation step.
 Port of ``ubpl_tpu/train/common.py``: the whole dataset lives on the device
 as uint8 (``:20-44``); each step gathers its batch by index and builds its
 view there — flip/noise/affine, colour normalisation, then the Gaussian
-targets through the Triton kernel (``make_view``, ``:60-103``).  The
+targets through the Triton kernel (``make_view``, ``:60-103``); the
+classification branch's view is ``make_class_view`` (``:106-121``).  The
 sample weights and the multi-head validation step of
 ``ubpl_tpu/train/base_trainer.py`` are here too, as plain functions.
 
@@ -103,6 +104,26 @@ def make_view(images_u8, kps, means, cfg, draws: Optional[A.AugmentDraws]
         kps.contiguous(), inp_res=inp, out_res=cfg.out_res)
     return ViewBatch(imgs, heatmaps, kps_new, kps_new[..., 2], warpmat,
                      isflip, center, scale, angle)
+
+
+def make_class_view(images_u8, means, cfg,
+                    draws: Optional[A.AugmentDraws] = None):
+    """Classification view (``ubpl_tpu/train/common.py:106-121``; reference
+    datasets/classification/dataset.py): flip -> noise -> affine, run by
+    ``augment_batch`` with one dummy keypoint per image, then colorNorm.
+    ``draws=None`` builds the un-augmented view.  [B, R, R, 3] uint8 ->
+    [B, 3, R, R] float32."""
+    B, inp = images_u8.shape[0], cfg.inp_res
+    dev = images_u8.device
+    imgs = images_to_float(images_u8)
+    if draws is not None:
+        imgs = A.augment_batch(
+            imgs, torch.zeros((B, 1, 3), device=dev),
+            torch.full((B, 2), float(inp // 2), device=dev),
+            torch.full((B,), inp / 200.0, device=dev), draws, inp_res=inp,
+            use_flip=cfg.use_flip, sf=cfg.scale_range,
+            rf=cfg.rot_range).images
+    return A.color_normalize(imgs, means)
 
 
 @contextlib.contextmanager

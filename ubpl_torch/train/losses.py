@@ -5,9 +5,10 @@ NCHW layout: ``joint_mse``, ``joint_dist``, the feature-decorrelation terms
 (``joint_feature_dist[_masked]``, ``features_cov_masked``), the
 pseudo-label losses (``joint_pseudo3`` — the EPC of MT_UBPL — and the
 dormant ``joint_pseudo``/``joint_pseudo2``), the masked consistencies
-``joint_dist_mt``/``joint_dist_mt2``, and the host-side
-``AvgCounter``/``AvgCounters``.  The classification losses are not ported
-yet.
+``joint_dist_mt``/``joint_dist_mt2``, the classification branch's
+``class_loss``, ``class_dist``, ``class_sym_dist``, ``class_pseudo`` and
+``class_feature_dist`` (``:285-328``), and the host-side
+``AvgCounter``/``AvgCounters``.
 
 Losses return ``(sum, count)`` as 0-dim tensors, with no host sync; the
 caller divides and applies the regime weight, as the reference trainers do.
@@ -15,7 +16,8 @@ Sample selection is masked arithmetic, so shapes never depend on the data.
 
 Layouts: preds [B, S, K, H, W] (S = hourglass stacks); gts [B, K, H, W];
 kps gate [B, K]; sample weight [B] or [B, 1]; features [B, N, C, hf, wf];
-teacher stacks [M, B, S, K, H, W].
+teacher stacks [M, B, S, K, H, W]; class logits [B, C], teacher logits
+[M, B, C], class features [B, C, hf, wf].
 """
 from typing import NamedTuple
 
@@ -230,6 +232,55 @@ def joint_dist_mt2(preds1, preds2, kps_gate=None, sample_weight=None,
            / wpos.sum().clamp(min=1.0)).mean(dim=0)        # [K]
     return ((loss * mask).sum(), S * kps_labeled_count(gate),
             PseudoStats((loss > 0).sum(), (mask > 0).sum(), jsm))
+
+
+# ---------------------------------------------------------------------------
+# Classification-branch losses (reference utils/losses.py:289-354)
+# ---------------------------------------------------------------------------
+
+def class_loss(logits, labels, sample_weight=None, use_sample_weight=False):
+    """Reference ClassLoss: cross-entropy with ignore_index=-1, optional
+    sample weights; (sum, number of labelled samples)."""
+    valid = labels >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = nll * valid.to(nll.dtype)
+    if use_sample_weight and sample_weight is not None:
+        nll = nll * sample_weight.reshape(-1)
+    return nll.sum(), valid.sum()
+
+
+def class_dist(logits1, logits2):
+    """Reference ClassDistLoss: squared distance of the softmaxes over the
+    number of classes; (sum, batch size)."""
+    bs, c = logits1.shape
+    d = torch.softmax(logits1, -1) - torch.softmax(logits2, -1)
+    return (d ** 2).sum() / c, bs
+
+
+def class_sym_dist(logits1, logits2):
+    """Reference ClassSymDistLoss: raw squared distance over the number of
+    classes; (sum, batch size)."""
+    bs, c = logits1.shape
+    return ((logits1 - logits2) ** 2).sum() / c, bs
+
+
+def class_pseudo(logits, teacher_logits, sample_weight):
+    """Reference ClassPseudoLoss: per-sample MSE to the mean of the M
+    teachers' softmaxes (``teacher_logits`` [M, B, C]), weighted;
+    (sum, number of weighted samples)."""
+    t = torch.softmax(teacher_logits, -1).mean(dim=0)
+    sw = sample_weight.reshape(-1)
+    loss = ((torch.softmax(logits, -1) - t) ** 2).mean(dim=-1) * sw
+    return loss.sum(), (sw > 0).sum()
+
+
+def class_feature_dist(f1, f2):
+    """Reference ClassFeatureDistLoss: the sum over samples of the inverse
+    mean squared distance of the two feature maps; (sum, batch size)."""
+    bs, c = f1.shape[:2]
+    d = (f1.reshape(bs, c, -1) - f2.reshape(bs, c, -1)) ** 2
+    return (1.0 / d.mean(dim=-1).mean(dim=-1)).sum(), bs
 
 
 class AvgCounter:
