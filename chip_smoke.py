@@ -26,6 +26,23 @@ width through their user entry points:
     held to a resident trainer's, 8 steps, when the copies ran on the
     device clock, and the profile's host-to-device copies with their stream;
   * train_mt: ``MeanTeacherTrainer``, same shape, 4 steps and a validation;
+  * train_mt_ubpl_dp: train_mt_ubpl's shape data-parallel through
+    ``parallel.launch.launch``: two ranks on card 0 under gloo (16 rows
+    each).  gloo's collectives on CUDA tensors checked per dtype and timed;
+    in fp32 with TF32 off, step 1 is held to one process's step 1 on the
+    same seed and batch (losses, summed gradients), and the validation
+    split over the ranks to one process's counters; in float64 step 1
+    with one process's views and with the ranks' own; then 8 bf16 steps (2
+    heatmap launches per step per rank) with the ranks' step time, global
+    images/s, peak memory and collective time, and one checkpoint, written
+    once, that ``PoseEstimator.from_checkpoint`` serves;
+  * cli_mt_ubpl_mesh: ``python -m ubpl_torch mt_ubpl --synthetic_data=True
+    --mesh_shape=N`` (N = the host's cards under NCCL; one card: two gloo
+    ranks on it) against the same run with ``--mesh_shape=1`` (in this
+    process), HG3, fp32, 2 epochs of 1 step: equal first-epoch losses;
+    rank 0's trace of epoch 1 holds 2 heatmap kernels;
+  * dp_nccl (hosts with several cards only): the MT_UBPL step under NCCL
+    over 1 and over all cards, step time, images/s and scaling;
   * data_disk: writes a Mouse tree in the reference layout (320 PNG crops of
     320x240, 9 keypoints each, under ``chiprun_out/smoke_data``, removed at
     the end) with the port's ``write_png``, and times ``get_semi_data`` +
@@ -43,7 +60,9 @@ width through their user entry points:
     rounds' views skip target synthesis, so only the steps launch the
     kernel;
   * cli_exec_quick: ``python -m ubpl_torch exec --quick`` on the same tree:
-    all five regimes, 2 epochs each, HG2 (the depth cut), 24 images;
+    all five regimes, 2 epochs each, HG2 (the depth cut), 24 images (these
+    three CLI phases pass ``--mesh_shape=1``: they train in this process,
+    where the launch counts are read, on a host with any number of cards);
   * train_classification: ``ClassificationTrainer`` in ``mt_ubpl`` mode,
     ResNet18 at its published widths, bf16, bs 128 = 96 + 32, CIFAR-10's
     shapes (50,000 + 10,000 seeded images), one epoch of 32 steps on a
@@ -71,6 +90,9 @@ no result line).  Without CUDA it exits 2 before doing anything.
 
 Build outputs (Triton cache, the compiled PNG unfilter, the smoke
 checkpoints, the CLI runs and their trace) go to ``.kernel_build/``.
+
+``--only=NAME[,NAME...]`` runs the kernel check and the named phases alone
+(``train_mt_ubpl`` stands for the four single-process training phases).
 """
 import contextlib
 import glob
@@ -146,22 +168,33 @@ def phase_env():
 
 
 def phase_kernel_heatmap():
-    """Triton heatmap kernel vs its plain version, at the main-path shape
-    (B=32, K=9, 256 -> 64) on kps drawn from uniform(-5, 260)."""
+    """Triton heatmap kernel vs its plain version at the main paths' shapes
+    (K=9, 256 -> 64; B=32 in one process, B=16 on each of two data-parallel
+    ranks) on kps drawn from uniform(-5, 260); timed at B=32."""
     import torch
     from ubpl_torch.ops.heatmap import synthesize_heatmaps as plain
     from ubpl_torch.ops.kernels import heatmap_synth as HS
-    B, K, inp, out = 32, 9, 256, 64
-    kps = torch.as_tensor(np.random.default_rng(0).uniform(
-        -5, 260, (B, K, 3)).astype(np.float32), device="cuda")
-    hm_k, kn_k = HS.synthesize_heatmaps(kps, inp, out)
-    hm_p, kn_p = plain(kps, inp, out)
-    torch.cuda.synchronize()
-    err = (hm_k - hm_p).abs().max().item()
-    if not err <= 1e-6:
-        raise AssertionError(f"heatmap kernel max abs err {err} > 1e-6")
-    if not torch.equal(kn_k, kn_p):
-        raise AssertionError("heatmap kernel kps_new differs from plain")
+    K, inp, out = 9, 256, 64
+    rng = np.random.default_rng(0)
+    errs = {}
+    for B in (32, 16):
+        kps = torch.as_tensor(rng.uniform(-5, 260, (B, K, 3)).astype(
+            np.float32), device="cuda")
+        if B == 32:
+            timed = kps
+        hm_k, kn_k = HS.synthesize_heatmaps(kps, inp, out)
+        hm_p, kn_p = plain(kps, inp, out)
+        torch.cuda.synchronize()
+        errs[B] = (hm_k - hm_p).abs().max().item()
+        if not errs[B] <= 1e-6:
+            raise AssertionError(f"heatmap kernel max abs err {errs[B]} > "
+                                 f"1e-6 at B={B}")
+        if not torch.equal(kn_k, kn_p):
+            raise AssertionError(f"heatmap kernel kps_new differs from plain "
+                                 f"at B={B}")
+    err = max(errs.values())
+    kps = timed
+    B = kps.shape[0]
     kernel_ms = cuda_median_ms(lambda: HS.synthesize_heatmaps(kps, inp, out))
     plain_ms = cuda_median_ms(lambda: plain(kps, inp, out))
     kernel_graph_ms = cuda_graph_ms(
@@ -178,7 +211,8 @@ def phase_kernel_heatmap():
            "plain_ms": plain_ms, "bound_ms": bounds[bound_by],
            "bound_by": bound_by, "library_ms": None}
     emit({"phase": "kernel:heatmap_synth", "shape": [B, K, out, out],
-          "max_abs_err": err, "kps_new_equal": True, "kernel_ms": kernel_ms,
+          "max_abs_err": err, "max_abs_err_by_batch": errs,
+          "kps_new_equal": True, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
           "kernel_graph_ms": kernel_graph_ms, "plain_graph_ms": plain_graph_ms,
           "launches_while_checking": HS.launches})
@@ -453,6 +487,554 @@ def phase_train_mt(counts):
           "valid_pck_mean": [a[-1] for a in accs],
           "kernel_launches": launches, "kernel_launches_per_step": 2})
     return launches
+
+
+def dp_config(**kw):
+    """train_mt_ubpl's shape: HG3, K=9, 256 -> 64, bs 32 = 16 unlabeled +
+    16 labeled, 256 synthetic training images."""
+    return train_config(**{"label_ratio": 0.5, "train_bs_labeled": 16,
+                           **kw})
+
+
+DP_FP32 = dict(compute_dtype="float32")
+
+
+def forward_float64(model, images, train, compute_dtype, remat=False):
+    """``train/common.py:forward_heatmaps`` for float64 networks, without
+    the cast of its outputs to float32."""
+    model.train(train)
+    out = model(images.double())
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def float64_step(device, mesh=None, views=None):
+    """Step 1 of MT_UBPL in float64 (networks and losses), train_mt_ubpl's
+    shape.  One process (``mesh`` None) records its augmented views;
+    ranks are handed their rows of ``views`` instead (their draws still
+    made).  Returns (views or None, metrics, {name: (weights, gradient)}
+    of the students, on the host)."""
+    import torch
+    import ubpl_torch.train.common as C
+    import ubpl_torch.train.mt_ubpl as MT
+    from ubpl_torch.train.base_trainer import BaseTrainer
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    real = C.forward_heatmaps, MT.forward_heatmaps, BaseTrainer.augmented_view
+    seen = []
+    handed = iter(views or ())
+
+    def view(self, imgs, kps, **kw):
+        v = real[2](self, imgs, kps, **kw)
+        if views is None:
+            seen.append(type(v)(*(t.cpu() for t in v)))
+            return v
+        rows = self.local_rows(imgs.shape[0] * self.group.size)
+        return type(v)(*(t[rows].to(self.device) for t in next(handed)))
+    C.forward_heatmaps = MT.forward_heatmaps = forward_float64
+    BaseTrainer.augmented_view = view
+    try:
+        tr = MTUBPLTrainer(dp_config(**DP_FP32), device=device, mesh=mesh)
+        for net in tr.networks.values():
+            net.double()
+        batch = list(tr.make_sampler())[0]
+        m = tr.run_train_steps([batch], *tr.epoch_schedules(1).values())[0]
+        nets = {f"{name}:{k}": (p.detach().cpu(), p.grad.cpu())
+                for name, net in tr.networks.items() if "_ema" not in name
+                for k, p in net.named_parameters()}
+        return (seen or None, {k: v.tolist() for k, v in m.items()}, nets)
+    finally:
+        C.forward_heatmaps, MT.forward_heatmaps = real[:2]
+        BaseTrainer.augmented_view = real[2]
+
+
+def collective_ms(prof, n):
+    """Per-step times of the collectives in a profile of ``n`` steps: the
+    host spans of the c10d calls (gloo runs them on the host) and the
+    device time of NCCL's kernels."""
+    from torch.autograd import DeviceType
+    host, device = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if e.key.lower().startswith("nccl"):
+                device += e.self_device_time_total / 1e3 / n
+        elif re.match(r"(c10d::|gloo:|nccl:)", e.key):
+            host[e.key] = e.cpu_time_total / 1e3 / n
+    return {"host_ms_per_step": host, "nccl_device_ms_per_step": device}
+
+
+def step_differences(tr, ref):
+    """Step 1 of ``tr`` against one process's (``ref``), on the card: the
+    summed gradients' differences relative to each tensor's gradient
+    (norms, tensors with a gradient above rounding noise: median and
+    largest), the largest weight and running-stat differences, and the
+    five tensors whose gradients differ most."""
+    import torch
+    dev = tr.device
+    out = {"param": 0.0, "stat": 0.0}
+    rel = []
+    with torch.no_grad():
+        for name, net in tr.networks.items():
+            grads = ref["grads"][name.replace("_ema", "")]
+            top = max(float(g.norm()) for g in grads.values())
+            for key, p in net.named_parameters():
+                g = grads[key].to(dev)
+                out["param"] = max(out["param"], float(
+                    (p - ref["states"][name][key].to(dev)).abs().max()))
+                if p.grad is not None and float(g.norm()) > 1e-6 * top:
+                    rel.append((float((p.grad - g).norm() / g.norm()),
+                                f"{name}:{key}"))
+            for key, t in net.named_buffers():
+                out["stat"] = max(out["stat"], float(
+                    (t - ref["states"][name][key].to(dev)).abs().max()))
+    rel.sort(reverse=True)
+    out["grad_rel_max"] = rel[0][0]
+    out["grad_rel_median"] = statistics.median(r for r, _ in rel)
+    return out, rel[:5]
+
+
+def float64_differences(one, dp):
+    """The float64 step of the ranks (``dp``) against one process's
+    (``one``): losses and counts (largest relative difference), each
+    student tensor's summed gradient (relative, norms; tensors with a
+    gradient above rounding noise: largest and median), and the weights
+    beyond 1e-9 of their size."""
+    loss = max(float(np.max(np.abs(np.subtract(dp["metrics"][k], v))
+                            / np.maximum(np.abs(v), 1e-300)))
+               for k, v in one["metrics"].items())
+    weight, rel = 0.0, []
+    top = max(float(g.norm()) for _, g in one["nets"].values())
+    for key, (p, g) in one["nets"].items():
+        q, h = dp["nets"][key]
+        if float(g.norm()) > 1e-6 * top:    # not a zero gradient's noise
+            rel.append(float((h - g).norm() / g.norm()))
+        weight = max(weight, float(((q - p).abs() - 1e-9 * p.abs()).max()))
+    return {"loss_rel": loss, "grad_rel": max(rel),
+            "grad_rel_median": statistics.median(rel),
+            "weight_excess": weight}
+
+
+def gloo_probe(ctx):
+    """gloo on CUDA tensors between the ranks: whether ``all_reduce``,
+    ``all_gather`` and ``broadcast`` are right for each dtype, and the host
+    time of a 4 KB and of an 80 MB all-reduce (a BatchNorm's statistics;
+    HG3's two students' gradients)."""
+    import torch
+    import torch.distributed as dist
+    out = {"dtypes_ok": {}}
+    for dt in (torch.uint8, torch.int32, torch.int64, torch.float32,
+               torch.float64, torch.bfloat16, torch.float16):
+        x = torch.full((5,), ctx.rank + 1, dtype=dt, device=ctx.device)
+        dist.all_reduce(x)
+        pieces = [torch.empty_like(x) for _ in range(ctx.mesh.size)]
+        dist.all_gather(pieces, torch.full_like(x, ctx.rank + 1))
+        y = torch.full_like(x, ctx.rank + 1)
+        dist.broadcast(y, 0)
+        out["dtypes_ok"][str(dt)] = (
+            x.float().tolist() == [3.0] * 5
+            and [p.float().tolist() for p in pieces] == [[1.0] * 5, [2.0] * 5]
+            and y.float().tolist() == [1.0] * 5)
+    for nbytes, n in ((4096, 200), (80 * 2 ** 20, 20)):
+        t = torch.zeros(nbytes // 4, device=ctx.device)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out[f"all_reduce_ms_{nbytes}_bytes"] = (
+            (time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def dp_rank(ctx, ref_path, base):
+    """One rank of ``train_mt_ubpl_dp`` (see there)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.parallel import collectives as PC
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, weights_only=False)
+    out = {"rank": ctx.rank, "device": str(ctx.device),
+           "backend": dist.get_backend(), "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        torch.cuda.synchronize()
+        out["seconds"][part] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+    # 0. the collectives the port uses, on CUDA tensors under gloo
+    out["gloo"] = gloo_probe(ctx)
+    problems = [f"gloo collectives wrong for {dt} on rank {ctx.rank}"
+                for dt, ok in out["gloo"]["dtypes_ok"].items() if not ok]
+    lap("gloo_probe")
+    # 1. fp32: step 1 against one process's step 1 on the same batch
+    tr = MTUBPLTrainer(dp_config(**DP_FP32), device=ctx.device,
+                       mesh=ctx.mesh)
+    sched = tuple(tr.epoch_schedules(1).values())
+    batch = list(tr.make_sampler())[0]
+    if batch.tolist() != ref["batch"]:
+        raise AssertionError("the ranks sample another batch")
+    got = {k: v.tolist() for k, v in
+           tr.run_train_steps([batch], *sched)[0].items()}
+    lap("fp32_setup_and_step")
+    for key, want in ref["metrics"].items():
+        try:
+            np.testing.assert_allclose(got[key], want, rtol=1e-4, atol=0,
+                                       err_msg=key)
+        except AssertionError as e:
+            problems.append(str(e))
+    # In fp32 the ranks' summed gradients differ from one process's by a
+    # few percent of a tensor's norm at most (median 0.46-1.0% measured):
+    # cuDNN's algorithms for 16 and for 32 rows round differently and this
+    # network amplifies it, while in float64 the two agree to rounding (the
+    # checks after this one).  A gradient that is not summed over the ranks,
+    # or halved, is 50% off or more; the median is held to 5%.  (AdamW's
+    # first step moves every weight by about lr in its gradient's sign, so
+    # the weights cannot tell a right reduction from a wrong one.)
+    worst, top_grads = step_differences(tr, ref)
+    if not worst["grad_rel_median"] <= 5e-2:
+        problems.append(f"step 1's gradients differ from one process's: "
+                        f"{worst}")
+    with torch.no_grad():
+        flat = torch.cat([t.reshape(-1).float() for net in
+                          tr.networks.values()
+                          for t in net.state_dict().values()])
+        rank0 = flat.clone()
+        dist.broadcast(rank0, 0)
+        if PC.any_true(not torch.equal(rank0, flat), tr.group):
+            problems.append("the ranks hold different networks")
+    del flat, rank0
+    # 2. validation, split over the ranks, on one process's weights
+    for name, net in tr.networks.items():
+        net.load_state_dict(ref["states"][name])
+    lap("fp32_checks")
+    preds, accs, errs = tr.validate()
+    lap("validation")
+    if (accs, errs) != (ref["valid"][1], ref["valid"][2]):
+        problems.append(f"validation counters {accs} {errs} != one "
+                        f"process's {ref['valid'][1:]}")
+    pred_err = float(np.abs(np.asarray(preds) - np.asarray(ref["valid"][0]))
+                     .max())
+    out["fp32"] = {"metrics": got, "max_abs_diff": worst,
+                   "grad_diff_top": top_grads,
+                   "valid_pred_max_abs_diff": pred_err,
+                   "valid_pck_mean": [a[-1] for a in accs]}
+    del tr
+    torch.cuda.empty_cache()
+    # 2b. float64, handed one process's views, then with the ranks' own
+    # views: rank 0's students go back
+    for key, views in (("ranks64", torch.load(ref["views64"],
+                                              weights_only=False)),
+                       ("own64", None)):
+        _, got64, nets = float64_step(ctx.device, ctx.mesh, views)
+        if ctx.rank == 0:
+            torch.save({"metrics": got64, "nets": nets}, ref[key])
+        del views, nets
+        torch.cuda.empty_cache()
+        lap(f"float64_step_{key}")
+    # 3. bf16: 8 timed steps, then a profile of 2 (rank 0's)
+    tr = MTUBPLTrainer(dp_config(), device=ctx.device, mesh=ctx.mesh)
+    batches = list(tr.make_sampler())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    HS.launches = 0
+    step_ms, metrics = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.run_train_steps([b], *sched)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.tolist() for k, v in m.items()})
+    launches = HS.launches
+    lap("bf16_setup_and_8_steps")
+    if launches != 2 * len(batches):
+        raise AssertionError(f"heatmap kernel launched {launches} times in "
+                             f"{len(batches)} steps on rank {ctx.rank}")
+    for m in metrics:
+        assert_finite("data-parallel metric", *m.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    window = list(tr.make_sampler())[:2]
+    if ctx.rank == 0:
+        # host activity alone: gloo's collectives run on the host, and the
+        # device's events would take minutes to sort at this many ops
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tr.run_train_steps(window, *sched)
+            torch.cuda.synchronize()
+        collectives = collective_ms(prof, len(window))
+    else:
+        tr.run_train_steps(window, *sched)
+        collectives = None
+    lap("profile_2_steps")
+    steady = statistics.median(step_ms[1:])
+    out["bf16"] = {"step_ms": step_ms, "steady_step_ms_median": steady,
+                   "global_images_per_s": tr.cfg.train_bs / steady * 1e3,
+                   "peak_memory_gb": peak_gb, "launches": launches,
+                   "rows_per_rank": tr.cfg.train_bs // ctx.mesh.size,
+                   "last": metrics[-1], "collectives": collectives}
+    # 4. one checkpoint: rank 0 writes it
+    tr.save(base, 0, True)
+    PC.barrier(tr.group)
+    lap("checkpoint")
+    out["launches"] = {HS.NAME: launches}
+    out["problems"] = problems
+    return out
+
+
+def phase_train_mt_ubpl_dp(counts):
+    """Data-parallel MT_UBPL through ``parallel.launch``: two ranks on card
+    0 under gloo (NCCL refuses two ranks on one card), train_mt_ubpl's
+    shape (HG3, K=9, bf16, bs 32 = 16 + 16: 16 rows per rank).
+
+    First the collectives of the port under gloo on CUDA tensors (each
+    dtype; a 4 KB and an 80 MB all-reduce timed).  Then, fp32 with TF32
+    off, the ranks' step 1 is held to one process's step 1 on the same
+    seed and batch (losses rtol 1e-4, the summed gradients' median per-
+    tensor difference 5%: see ``dp_rank``; both ranks' networks equal), and
+    their validation, split over the ranks on that process's post-step
+    weights, to its counters.  Then the same step in float64, the ranks
+    handed one process's views: losses and summed gradients within 1e-9,
+    weights within 1e-9 of their size + 2.5e-8 (AdamW's step on a zero
+    gradient's rounding noise); and with their own views, whose float32
+    last bits depend on the batch size: losses within 1e-6, gradients
+    within 2% (median 0.2%).
+    Then 8 bf16 steps (2 heatmap launches per step per rank) and a profile
+    of 2 (rank 0's), and one checkpoint, written once, that
+    ``PoseEstimator.from_checkpoint`` serves.  gloo stages every collective
+    through the host: its times here are not what NCCL across cards
+    costs."""
+    import torch
+    from ubpl_torch.infer import PoseEstimator
+    from ubpl_torch.parallel import make_mesh
+    from ubpl_torch.parallel.launch import launch
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    one = MTUBPLTrainer(dp_config(**DP_FP32), device="cuda")
+    sched = tuple(one.epoch_schedules(1).values())
+    batch = list(one.make_sampler())[0]
+    metrics = {k: v.tolist() for k, v in
+               one.run_train_steps([batch], *sched)[0].items()}
+    ref = {"batch": batch.tolist(), "metrics": metrics,
+           "states": {name: {k: t.cpu() for k, t in
+                             net.state_dict().items()}
+                      for name, net in one.networks.items()},
+           "grads": {name: {k: p.grad.cpu() for k, p in
+                            net.named_parameters()}
+                     for name, net in one.networks.items()
+                     if "_ema" not in name},
+           "valid": one.validate()}
+    del one
+    torch.cuda.empty_cache()
+    views64, metrics64, nets64 = float64_step("cuda")
+    ref["views64"] = os.path.join(BUILD, "dp_views64.pt")
+    ref["ranks64"] = os.path.join(BUILD, "dp_ranks64.pt")
+    ref["own64"] = os.path.join(BUILD, "dp_own64.pt")
+    torch.save(views64, ref["views64"])
+    del views64
+    torch.cuda.empty_cache()
+    ref_path = os.path.join(BUILD, "dp_reference.pt")
+    torch.save(ref, ref_path)
+    base = os.path.join(BUILD, "smoke_mt_ubpl_dp")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = launch(dp_rank, make_mesh((2,), ("data",)), "cuda",
+                   backend="gloo", args=(ref_path, base), timeout=900)
+    run_s = time.perf_counter() - t0
+    # float64: the ranks' step equals one process's on the same views, and
+    # is near it on their own
+    one64 = {"metrics": metrics64, "nets": nets64}
+    f64 = float64_differences(one64, torch.load(ref["ranks64"],
+                                                weights_only=False))
+    own64 = float64_differences(one64, torch.load(ref["own64"],
+                                                  weights_only=False))
+    problems = [p for r in ranks for p in r["problems"]]
+    if not (f64["loss_rel"] <= 1e-9 and f64["grad_rel"] <= 1e-9
+            and f64["weight_excess"] <= 2.5e-8):
+        problems.append(f"float64 step differs from one process's: {f64}")
+    if not (own64["loss_rel"] <= 1e-6 and own64["grad_rel"] <= 2e-2
+            and own64["grad_rel_median"] <= 2e-3):
+        problems.append(f"float64 step on the ranks' own views differs from "
+                        f"one process's: {own64}")
+    for path in (ref["views64"], ref["ranks64"], ref["own64"]):
+        os.remove(path)
+    files = sorted(os.listdir(os.path.join(base, "ckpts")))
+    if files != ["checkpoint.pth.tar", "checkpoint_best.pth.tar"]:
+        raise AssertionError(f"checkpoint files {files}")
+    cfg = dp_config()
+    est = PoseEstimator.from_checkpoint(
+        base, model=cfg.model, kps_count=cfg.synthetic_kps,
+        means=(0.5, 0.5, 0.5), batch_size=32, device="cuda",
+        compute_dtype=cfg.compute_dtype, inp_res=cfg.inp_res,
+        out_res=cfg.out_res)
+    rng = np.random.default_rng(3)
+    kps, scores = est.predict(rng.integers(
+        0, 256, (8, cfg.inp_res, cfg.inp_res, 3), dtype=np.uint8))
+    if kps.shape != (8, cfg.synthetic_kps, 2):
+        raise AssertionError(f"served shape {kps.shape}")
+    assert_finite("served keypoints", kps, scores)
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in ranks[0]["launches"]}
+    emit({"phase": "train_mt_ubpl_dp", "problems": problems,
+          "regime": "MT_UBPL", "ranks": 2,
+          "backend": ranks[0]["backend"],
+          "devices": [r["device"] for r in ranks], "model": cfg.model,
+          "train_bs": cfg.train_bs, "train_bs_labeled": cfg.train_bs_labeled,
+          "run_s": run_s, "rank_seconds": [r["seconds"] for r in ranks],
+          "fp32_one_process": ref["metrics"],
+          "fp32": [r["fp32"] for r in ranks],
+          "gloo": [r["gloo"] for r in ranks],
+          "float64_vs_one_process": f64,
+          "float64_own_views_vs_one_process": own64,
+          "bf16": [r["bf16"] for r in ranks],
+          "checkpoint_files": files, "served_images": 8,
+          "kernel_launches": launches, "kernel_launches_per_step_per_rank": 2})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def nccl_rank(ctx, n_steps):
+    """One rank of ``dp_nccl``: bf16 MT_UBPL steps at 16 + 16 rows per
+    rank, timed, then one more under the profiler (rank 0's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    n = ctx.mesh.size
+    tr = MTUBPLTrainer(dp_config(train_bs=32 * n, train_bs_labeled=16 * n,
+                                 train_count=256 * n), device=ctx.device,
+                       mesh=ctx.mesh)
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())[:n_steps]
+    step_ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_train_steps([b], *sched)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if ctx.rank != 0:
+        tr.run_train_steps(batches[:1], *sched)
+        return {"step_ms": step_ms}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run_train_steps(batches[:1], *sched)
+        torch.cuda.synchronize()
+    return {"step_ms": step_ms, "collectives": collective_ms(prof, 1)}
+
+
+def phase_dp_nccl():
+    """On a host with several cards: the MT_UBPL step under NCCL over 1 and
+    over all N cards (bf16, 16 + 16 rows per card), its step time, images/s
+    and the scaling against one card."""
+    import torch
+    from ubpl_torch.parallel import make_mesh
+    from ubpl_torch.parallel.launch import launch
+    N = torch.cuda.device_count()
+    runs = {}
+    for n in (1, N):
+        ranks = launch(nccl_rank, make_mesh((n,), ("data",)), "cuda",
+                       args=(8,), timeout=900)
+        steady = max(statistics.median(r["step_ms"][1:]) for r in ranks)
+        runs[n] = {"step_ms": [r["step_ms"] for r in ranks],
+                   "steady_step_ms_median": steady,
+                   "images_per_s": 32 * n / steady * 1e3,
+                   "collectives": ranks[0]["collectives"]}
+    emit({"phase": "dp_nccl", "cards": N, "rows_per_card": 32,
+          "runs": runs,
+          "scaling": runs[N]["images_per_s"] / runs[1]["images_per_s"]})
+
+
+def phase_cli_mt_ubpl_mesh(counts):
+    """``python -m ubpl_torch mt_ubpl --synthetic_data=True
+    --mesh_shape=N`` through ``__main__.main``, spawned: N = the host's
+    cards under NCCL, or on a host with one card N = 2 ranks on it under
+    gloo (NCCL takes one rank per card: the CLI's card count and backend
+    are patched for this run).  HG3, bs 32 = 16 + 16, 48 training images
+    (one step an epoch), 2 epochs, fp32 with TF32 off, against the same run
+    with ``--mesh_shape=1``, which trains in this process: the first
+    epoch's losses equal (rtol 1e-5).  The second epoch's are compared, not
+    held: after one AdamW step cuDNN's rounding has moved the weights whose
+    gradient is near 0 by up to lr either way.  Rank 0 traces epoch 1: the
+    trace's heatmap kernels are its launches."""
+    import functools
+    import torch
+    import ubpl_torch.train.base_trainer as BT
+    from ubpl_torch.__main__ import main
+    N = torch.cuda.device_count()
+    ranks = max(N, 2)
+    backend = "nccl" if N > 1 else "gloo"
+    argv = ["mt_ubpl", "--synthetic_data=True", "--model=HG3",
+            "--synthetic_kps=9", "--inp_res=256", "--out_res=64",
+            "--train_count=48", "--valid_count=32", "--label_ratio=0.5",
+            "--train_bs=32", "--train_bs_labeled=16", "--infer_bs=32",
+            "--epochs=2", "--compute_dtype=float32"]
+    trace_dir = os.path.join(BUILD, "cli_mesh_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    runs = {}
+    tf32 = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"      # the spawned ranks' TF32
+    real = BT.local_mesh_size, BT.launch
+    try:
+        for name, extra in (("no_mesh", ["--mesh_shape=1"]),
+                            ("mesh", [f"--mesh_shape={ranks}",
+                                      f"--profile_dir={trace_dir}"])):
+            if name == "mesh" and N == 1:
+                BT.local_mesh_size = lambda: ranks
+                BT.launch = functools.partial(real[1], backend="gloo")
+            exp = os.path.join(BUILD, f"cli_mesh_{name}")
+            shutil.rmtree(exp, ignore_errors=True)
+            counts.reset()
+            t0 = time.perf_counter()
+            rc = main(argv + extra + [f"--experiment_root={exp}"])
+            run_s = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"main returned {rc}")
+            base = cli_run_dir(exp)
+            logs = []
+            for e in (1, 2):
+                with open(os.path.join(base, "logs", "logData",
+                                       f"logData_{e}.json")) as f:
+                    logs.append(json.load(f))
+            runs[name] = {"run_s": run_s, "logs": logs,
+                          "launches": counts.read()}
+    finally:
+        BT.local_mesh_size, BT.launch = real
+        if tf32 is None:
+            del os.environ["NVIDIA_TF32_OVERRIDE"]
+        else:
+            os.environ["NVIDIA_TF32_OVERRIDE"] = tf32
+    keys = ("pec_losses", "mtc_losses", "epc_losses", "fdc_loss")
+    rel = [max(float(np.max(np.abs(np.subtract(a[k], b[k]))
+                            / np.maximum(np.abs(b[k]), 1e-30)))
+               for k in keys)
+           for a, b in zip(runs["mesh"]["logs"], runs["no_mesh"]["logs"])]
+    for log in runs["mesh"]["logs"]:
+        assert_finite("mesh run loss/PCK", *log.values())
+    if not rel[0] <= 1e-5:
+        raise AssertionError(f"mesh run's epoch-1 losses differ by "
+                             f"{rel[0]} (rtol 1e-5)")
+    (trace,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    traced = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "heatmap_synth" in e.get("name", ""))
+    if traced != 2:
+        raise AssertionError(f"rank 0 traced {traced} heatmap kernels in "
+                             "one step")
+    if sum(runs["no_mesh"]["launches"].values()) == 0:
+        raise AssertionError("the --mesh_shape=1 run launched no kernel in "
+                             "this process")
+    emit({"phase": "cli_mt_ubpl_mesh", "cards": N, "mesh_shape": [ranks],
+          "backend": backend, "model": "HG3", "dtype": "float32",
+          "train_bs": 32, "epochs": 2, "steps_per_epoch": 1,
+          "run_s": {k: r["run_s"] for k, r in runs.items()},
+          "losses": {k: [{kk: log[kk] for kk in keys} for log in r["logs"]]
+                     for k, r in runs.items()},
+          "max_rel_loss_diff_per_epoch": rel,
+          "rank0_traced_heatmap_kernels_epoch1": traced,
+          "no_mesh_kernel_launches": runs["no_mesh"]["launches"]})
+    return runs["no_mesh"]["launches"]
 
 
 def phase_train_mt_ubpl_mld(counts):
@@ -861,7 +1443,7 @@ def phase_cli_dualpose_ubpl(counts):
             f"--data_root={SMOKE_DATA}", "--train_count=256",
             "--valid_count=64", "--label_ratio=0.5", "--train_bs=32",
             "--train_bs_labeled=16", "--infer_bs=32", "--model=HG3",
-            "--epochs=2", "--compute_dtype=bfloat16",
+            "--epochs=2", "--compute_dtype=bfloat16", "--mesh_shape=1",
             f"--experiment_root={exp}", f"--profile_dir={trace_dir}",
             f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"]
     torch.cuda.synchronize()
@@ -955,7 +1537,7 @@ def phase_cli_mt_ubpl_pseudo(counts):
             "--train_bs=32", "--train_bs_labeled=16", "--infer_bs=32",
             "--model=HG3", "--epochs=2", "--compute_dtype=bfloat16",
             "--pseudo_rounds=2", "--pseudo_interval=1",
-            "--pseudo_aug_views=2", "--optimizer=mld",
+            "--pseudo_aug_views=2", "--optimizer=mld", "--mesh_shape=1",
             f"--experiment_root={exp}",
             f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"]
     torch.cuda.synchronize()
@@ -1047,7 +1629,7 @@ def phase_cli_exec_quick(counts):
     with observe(SupervisedTrainer, MeanTeacherTrainer, MTUBPLTrainer,
                  DualPoseUBPLTrainer) as seen:
         rc = main(["exec", "--quick", f"--data_root={SMOKE_DATA}",
-                   f"--experiment_root={exp}",
+                   "--mesh_shape=1", f"--experiment_root={exp}",
                    f"--cache_dir={os.path.join(BUILD, 'smoke_cache')}"])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -1385,8 +1967,18 @@ class Counts:
         return {k.NAME: k.launches for k in self.kernels}
 
 
-def main():
+def main(argv=None):
+    """Every phase, or with ``--only=NAME[,NAME...]`` the kernel check and
+    the named phases alone (``train_mt_ubpl_dp``, ``cli_mt_ubpl_mesh``,
+    ``dp_nccl`` ...: a phase's name without ``phase_``)."""
     import torch
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    for arg in argv:
+        if not arg.startswith("--only="):
+            print(f"chip_smoke: unknown argument {arg!r}", file=sys.stderr)
+            return 2
+        only = set(arg[len("--only="):].split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1395,25 +1987,39 @@ def main():
     os.makedirs(BUILD, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def want(name):
+        return only is None or name in only
+
     smi = phase_env()
     records = {"heatmap_synth": phase_kernel_heatmap()}
-    phase_reference()
-    paths = [phase(counts) for phase in (phase_serve, phase_train)]
-    launches, resident_ms = phase_train_mt_ubpl(counts)
-    paths += [launches, phase_train_mt_ubpl_mld(counts),
-              phase_train_mt_ubpl_stream(counts, resident_ms),
-              phase_train_mt(counts)]
-    try:
-        paths.append(phase_train_classification(counts))
-        phase_classification_fp32()
-        phase_litepose()
-        phase_data_disk()
-        paths += [phase_cli_dualpose_ubpl(counts),
-                  phase_cli_mt_ubpl_pseudo(counts),
-                  phase_cli_exec_quick(counts),
-                  phase_cli_classification(counts)]
-    finally:
-        shutil.rmtree(SMOKE_DATA, ignore_errors=True)
+    if want("reference"):
+        phase_reference()
+    paths = [phase(counts) for phase in (phase_serve, phase_train)
+             if want(phase.__name__[len("phase_"):])]
+    if want("train_mt_ubpl"):
+        launches, resident_ms = phase_train_mt_ubpl(counts)
+        paths += [launches, phase_train_mt_ubpl_mld(counts),
+                  phase_train_mt_ubpl_stream(counts, resident_ms),
+                  phase_train_mt(counts)]
+    if want("train_mt_ubpl_dp"):
+        paths.append(phase_train_mt_ubpl_dp(counts))
+    if want("cli_mt_ubpl_mesh"):
+        paths.append(phase_cli_mt_ubpl_mesh(counts))
+    if want("dp_nccl") and torch.cuda.device_count() >= 2:
+        phase_dp_nccl()
+    if only is None:
+        try:
+            paths.append(phase_train_classification(counts))
+            phase_classification_fp32()
+            phase_litepose()
+            phase_data_disk()
+            paths += [phase_cli_dualpose_ubpl(counts),
+                      phase_cli_mt_ubpl_pseudo(counts),
+                      phase_cli_exec_quick(counts),
+                      phase_cli_classification(counts)]
+        finally:
+            shutil.rmtree(SMOKE_DATA, ignore_errors=True)
     for name, rec in records.items():
         rec["launches"] = sum(launches[name] for launches in paths)
         if rec["launches"] == 0:

@@ -6,10 +6,12 @@ configures the port unchanged.
 
 Fields that steer only the XLA/TPU lowering (``unroll_branches``,
 ``scan_branches``, ``scan_batches``, ``donate_state``,
-``fuse_teacher_forward``, ``mesh_shape``/``mesh_axes``) are accepted and
-ignored: they leave the math unchanged (the trainers still refuse
-``stream_data`` with ``scan_batches > 1``, as the JAX package does).  ``io_workers`` sets the host
-decode threads of ``data.arrays``.
+``fuse_teacher_forward``) are accepted and ignored: they leave the math
+unchanged (the trainers still refuse ``stream_data`` with
+``scan_batches > 1``, as the JAX package does).  ``mesh_shape`` and
+``mesh_axes`` lay the run out over several cards
+(``parallel/mesh.py:build_mesh``, one process per card).  ``io_workers``
+sets the host decode threads of ``data.arrays``.
 """
 import dataclasses
 import json
@@ -17,15 +19,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
-
-def parse_axis_spec(value, cast=int) -> Tuple:
-    """Accept a tuple/list or a CLI string like "2,4" / "model,data"
-    (copy of ``ubpl_tpu/parallel/mesh.py:parse_axis_spec``)."""
-    if isinstance(value, str):
-        return tuple(cast(v.strip()) for v in value.split(",") if v.strip())
-    if isinstance(value, (int, float)):
-        return (cast(value),)
-    return tuple(cast(v) for v in value)
+from .parallel.mesh import parse_axis_spec
 
 
 @dataclass
@@ -102,8 +96,9 @@ class Config:
         "UBPL_EXPR_ROOT", "./experiments"))
     program: str = "ubpl_torch-0.1"
 
-    # device knobs: compute_dtype and remat are read; the others steer only
-    # the XLA/TPU lowering and are accepted for parameter-dict parity
+    # device knobs: the mesh, compute_dtype and remat are read; the others
+    # steer only the XLA/TPU lowering and are accepted for parameter-dict
+    # parity
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("data",)
     compute_dtype: str = "bfloat16"     # bf16 autocast on the card

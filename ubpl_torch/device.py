@@ -17,7 +17,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without CUDA); anything else as given."""
+    """``None`` -> ``cuda`` (raises without CUDA); anything else as given.
+    A rank of a data-parallel run passes its own ``cuda:{local_rank}``
+    (``parallel.launch``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_gather_stacked, all_reduce_sum
+
 # std of N(0, 1) truncated to [-2, 2] (flax variance_scaling's correction)
 _TRUNC_STD = 0.87962566103423978
 
@@ -38,12 +40,23 @@ class BatchNorm(nn.Module):
     ``update_stats=False`` (set while ``torch.utils.checkpoint`` recomputes
     a forward) normalises with batch statistics but leaves the running
     stats alone, so a recomputed forward does not update them twice.
+
+    ``group`` (a ``parallel.collectives.BatchGroup``, set by
+    ``set_batch_group``) splits the batch over several processes: train
+    mode then normalises with the statistics of the global batch, as the
+    JAX package computes them under GSPMD (``ubpl_tpu/models/layers.py:
+    10-12``), and moves the running stats from them (``_GlobalBatchNorm``:
+    one collective forward, one backward).  A recomputed forward issues
+    the same collective, so under ``remat`` every rank runs the same
+    sequence of them.  Without a group (or with a group of one) the cuDNN
+    path above runs unchanged.
     """
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
         self.update_stats = True
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -53,6 +66,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._global_batch_norm(x)
         n = x.numel() // x.shape[1]
         # the op updates a copy: the buffer it saves for backward must not
         # be modified afterwards.  A recompute runs the same op (it must
@@ -70,6 +85,81 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(new_var - (
                 new_var - (1.0 - self.momentum) * self.running_var) / n)
         return y
+
+    def _global_batch_norm(self, x):
+        """Train-mode normalisation with the global batch's mean and biased
+        variance (``_GlobalBatchNorm``)."""
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, self)
+
+
+def _reduced_dims(x):
+    return [0] + list(range(2, x.dim())), [1, x.shape[1]] + [1] * (x.dim() - 2)
+
+
+def _stats_dtype(x):
+    """fp32 statistics for a reduced-precision input, else its own."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm in train mode over a batch split across ``bn.group``.
+
+    Forward: each rank's count, mean and centred sum of squares go through
+    one collective (``all_gather_stacked``) and are combined as Chan et al.
+    combine partial variances, stable in fp32 where a plain sum of squares
+    is not; the running stats move with flax's biased update unless
+    ``bn.update_stats`` is off (a recompute).  Backward: cuDNN's formula
+    with the global sums of ``dy`` and ``dy * x_hat`` (one all-reduce); the
+    parameter gradients are this rank's share, summed over the ranks with
+    the other gradients (``collectives.all_reduce_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
+        dims, shape = _reduced_dims(x)
+        C = x.shape[1]
+        xf = _stats_dtype(x)
+        mean = xf.mean(dims)
+        m2 = ((xf - mean.view(shape)) ** 2).sum(dims)
+        n = mean.new_full((1,), float(x.numel() // C))
+        stats = all_gather_stacked(torch.cat([n, mean, m2]), bn.group)
+        ns, means, m2s = stats[:, :1], stats[:, 1:C + 1], stats[:, C + 1:]
+        total = ns.sum()
+        g_mean = (ns * means).sum(0) / total
+        g_var = (m2s.sum(0) + (ns * (means - g_mean) ** 2).sum(0)) / total
+        if bn.update_stats:
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(g_mean, alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(g_var, alpha=m)
+        invstd = torch.rsqrt(g_var + bn.eps)
+        ctx.save_for_backward(x, g_mean, invstd, weight)
+        ctx.group, ctx.total = bn.group, total
+        x_hat = (xf - g_mean.view(shape)) * invstd.view(shape)
+        return (x_hat * weight.view(shape) + bias.view(shape)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, invstd, weight = ctx.saved_tensors
+        dims, shape = _reduced_dims(x)
+        C = x.shape[1]
+        dyf = _stats_dtype(dy)
+        x_hat = (_stats_dtype(x) - mean.view(shape)) * invstd.view(shape)
+        sums = torch.cat([dyf.sum(dims), (dyf * x_hat).sum(dims)])
+        d_bias, d_weight = sums[:C].clone(), sums[C:].clone()
+        all_reduce_sum(sums, ctx.group)
+        dx = (dyf - (sums[:C] / ctx.total).view(shape)
+              - x_hat * (sums[C:] / ctx.total).view(shape)) \
+            * (weight * invstd).view(shape)
+        return (dx.to(x.dtype), d_weight.to(weight.dtype),
+                d_bias.to(weight.dtype), None)
+
+
+def set_batch_group(model, group):
+    """Point every ``BatchNorm`` of ``model`` at ``group`` (None: the
+    single-process statistics)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model
 
 
 class ConvBlock(nn.Module):

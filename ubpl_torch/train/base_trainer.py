@@ -17,10 +17,22 @@ checkpointed state (``:640-741``: ``_ensure_pseudo_loop``,
 ``profile_dir`` trace, the preemption guard and ``_write_report``
 (``:743-837``), the ``torch_init`` warm start
 (``ubpl_tpu/models/torch_import.py:196-240``), and ``make_experiment`` /
-``run_regime`` (``:851-873``, without a device mesh: one card).  With
-``stream_data`` the training set stays on the host and
-``train/streaming.py`` moves each batch (``:132-141``, ``:423-497``).
-The constructor refuses what the JAX package refuses (``:57-73``).
+``run_regime`` (``:851-873``).  With ``stream_data`` the training set stays
+on the host and ``train/streaming.py`` moves each batch (``:132-141``,
+``:423-497``).  The constructor refuses what the JAX package refuses
+(``:57-73``).
+
+Data parallel (``mesh``, one process per card; ``parallel/``): the
+datasets are padded to ``batch_mult`` and each rank holds its
+``batch_rows`` of them (``_dataset_sharding``, ``:145-158``).  A batch is
+gathered as the JAX package lowers it, by masked local gathers and one
+batch-sized all-reduce (``gather_rows``), and each rank keeps its own rows
+of it.  Every rank draws the same batch order and the augmentation draws of
+the global batch, then keeps its rows of them, so a rank's views are the
+single-process views' rows.  Validation and the pseudo-label rounds split
+their batches over the ranks and gather the predictions in order.  Rank 0
+alone writes checkpoints, logs and reports; the ranks' losses, metrics and
+validation results are global, so every rank returns the same history.
 
 Random numbers: numpy's ``np.random.default_rng(cfg.seed)`` drives data
 and batch order (as in the JAX package); the augmentation draws come from a
@@ -42,18 +54,22 @@ from ..data.sampler import TwoStreamBatchSampler, valid_batches
 from ..data.sources import get_datasource
 from ..device import memory_format, resolve_device
 from ..models import create_pose_model
+from ..models.layers import set_batch_group
 from ..models.weights import (export_reference_state,
                               load_reference_checkpoint, load_state,
                               port_state_from_reference)
 from ..ops import augment as A
+from ..parallel import collectives as PC
+from ..parallel.launch import launch, under_torchrun, world_size_from_env
+from ..parallel.mesh import batch_rows, build_mesh, local_mesh_size
 from ..utils import Logger, json_save
 from ..utils.preemption import PreemptionGuard
 from ..utils.profiling import trace
 from ..utils.report import RunReport
 from . import losses as L
 from .checkpointing import restore_checkpoint, save_checkpoint
-from .common import (make_view, put_dataset, sample_weights,
-                     update_pck_counters, validate_heads_batch)
+from .common import (make_view, pck_heads, predict_heads_batch, put_dataset,
+                     sample_weights, update_pck_counters)
 from .pseudo_loop import PseudoLabelingLoop, round_draws
 from .streaming import BatchStreamer, StreamedBatch, host_dataset
 
@@ -93,7 +109,7 @@ class BaseTrainer:
     #: regimes with a primary/secondary loss split run cfg.optimizer="mld"
     supports_mld = False
 
-    def __init__(self, cfg: Config, device=None, logger=None):
+    def __init__(self, cfg: Config, device=None, logger=None, mesh=None):
         if cfg.optimizer not in ("adamw", "mld"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                              "(adamw | mld)")
@@ -113,7 +129,14 @@ class BaseTrainer:
                 "training set; stream_data keeps it on host — pick one")
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: ``parallel.mesh.Mesh`` of a data-parallel run (one process per
+        #: device, started by ``parallel.launch``); None on one device
+        self.mesh = mesh
+        self.group = PC.batch_group(mesh, self.device)
+        self.rank = self.group.rank if self.group else 0
         self.logger = logger or Logger(f"{cfg.data_source}_{self.regime}")
+        if not PC.is_writer():      # data parallel: rank 0 alone logs
+            self.logger = Logger(self.logger.experiment, console_level=None)
         self._setup_data()
         self._setup_occluders()
         self._setup_model()
@@ -178,8 +201,10 @@ class BaseTrainer:
         else:
             self.train_host = self.streamer = None
             self.train_data = put_dataset(**train, means=means,
-                                          device=self.device)
-        self.valid_data = put_dataset(**valid, means=means, device=self.device)
+                                          device=self.device, mesh=self.mesh,
+                                          rank=self.rank)
+        self.valid_data = put_dataset(**valid, means=means, device=self.device,
+                                      mesh=self.mesh, rank=self.rank)
         self.means = self.valid_data.means
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = torch.Generator(device=self.device)
@@ -200,31 +225,61 @@ class BaseTrainer:
         self.occluder_bank = (torch.as_tensor(rgb, device=self.device),
                               torch.as_tensor(alpha, device=self.device))
 
+    def gather_rows(self, data, idxs,
+                    fields=("images", "kps", "islabeled")):
+        """The rows ``idxs`` (global indices) of ``data``'s ``fields``, on
+        the device of every rank.  Sharded, each rank fills the rows it
+        holds (zeros elsewhere) and one all-reduce of their bytes
+        completes the batch everywhere."""
+        idxs = np.asarray(idxs, np.int64)
+        if self.group is None:
+            i = torch.as_tensor(idxs, device=self.device)
+            return [getattr(data, f)[i] for f in fields]
+        local = idxs - data.offset
+        own = (local >= 0) & (local < data.images.shape[0])
+        at = torch.as_tensor(np.flatnonzero(own), device=self.device)
+        src = torch.as_tensor(local[own], device=self.device)
+        bufs = []
+        for f in fields:
+            x = getattr(data, f)
+            buf = x.new_zeros((len(idxs),) + tuple(x.shape[1:]))
+            bufs.append(buf.index_copy_(0, at, x[src]))
+        return PC.sum_rows_bytes(bufs, self.group)
+
+    def local_rows(self, n):
+        """This rank's rows of an ``n``-row global batch (a slice)."""
+        rows = batch_rows(self.mesh if self.group else None, self.rank, n)
+        return slice(rows.start, rows.stop)
+
     def fetch_batch(self, data, batch):
-        """One batch on the device: ``batch`` is an index list gathered
-        from the device-resident ``data``, or (``stream_data``) a
-        ``StreamedBatch`` already on its way."""
+        """This rank's rows of one batch on the device: ``batch`` is a
+        global index list gathered from the device-resident ``data``, or
+        (``stream_data``) a ``StreamedBatch`` of this rank's rows already
+        on its way."""
         if isinstance(batch, StreamedBatch):
             return batch.take()
-        i = torch.as_tensor(np.asarray(batch), device=self.device)
-        return data.images[i], data.kps[i], data.islabeled[i]
+        rows = self.local_rows(len(batch))
+        return [x[rows] for x in self.gather_rows(data, batch)]
 
     def augmented_view(self, imgs, kps, *, scale_range=None, rot_range=None,
                        occlude=None):
-        """One augmented view of a gathered batch: its augmentation draws
-        (then its occlusion draws, where ``occlude`` — by default
-        ``cfg.use_occlusion`` — is on and there is a bank) from the
-        trainer's generator, and one heatmap-kernel launch."""
+        """One augmented view of this rank's rows of a gathered batch: the
+        augmentation draws of the global batch (then its occlusion draws,
+        where ``occlude`` — by default ``cfg.use_occlusion`` — is on and
+        there is a bank) from the trainer's generator, this rank's rows of
+        them, and one heatmap-kernel launch."""
         cfg = self.cfg
-        B = imgs.shape[0]
+        B = imgs.shape[0] * PC.size(self.group)
+        rows = self.local_rows(B)
         draws = A.draw_augment(B, self.generator, self.device)
+        draws = type(draws)(*(x[rows] for x in draws))
         occlude = cfg.use_occlusion if occlude is None else occlude
         occlusion = None
         if occlude and self.occluder_bank is not None:
             rgb, alpha = self.occluder_bank
-            occlusion = (rgb, alpha, A.draw_occlusion(
-                B, cfg.num_occluder, rgb.shape[0], self.generator,
-                self.device))
+            occ = A.draw_occlusion(B, cfg.num_occluder, rgb.shape[0],
+                                   self.generator, self.device)
+            occlusion = (rgb, alpha, type(occ)(*(x[rows] for x in occ)))
         return make_view(imgs, kps, self.means, cfg, draws,
                          scale_range=scale_range, rot_range=rot_range,
                          occlusion=occlusion)
@@ -248,14 +303,21 @@ class BaseTrainer:
     # ----------------------------------------------------------------- model
     def _make_model(self, seed=None):
         """One network, initialised on the CPU from ``seed`` (cfg.seed by
-        default), in the device's activation layout."""
+        default), in the device's activation layout.  Data parallel, its
+        BatchNorms use the global batch's statistics, and rank 0's
+        weights are broadcast once (every rank drew the same ones: a
+        guard)."""
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed if seed is None else seed)
             model = create_pose_model(cfg.model, cfg.kps_count,
                                       cfg.feature_mode)
-        return model.to(self.device,
-                        memory_format=memory_format(self.device))
+        model = model.to(self.device,
+                         memory_format=memory_format(self.device))
+        with torch.no_grad():
+            PC.broadcast_([*model.parameters(), *model.buffers()],
+                          self.group)
+        return set_batch_group(model, self.group)
 
     def _make_models(self, n):
         """``n`` student branches, branch i initialised from cfg.seed + i,
@@ -311,11 +373,12 @@ class BaseTrainer:
 
     def run_train_steps(self, batch_iter, *sched_args):
         """Drive batches through ``train_step`` (with ``stream_data``, each
-        batch's copy issued one step ahead).  Returns the per-step metric
-        dicts as device tensors; reading them (the caller's reduction) is
-        the only host sync."""
+        batch's copy — this rank's rows of it — issued one step ahead).
+        Returns the per-step metric dicts as device tensors; reading them
+        (the caller's reduction) is the only host sync."""
         if self.streamer is not None:
-            batch_iter = self.streamer.batches(batch_iter)
+            batch_iter = self.streamer.batches(
+                np.asarray(b)[self.local_rows(len(b))] for b in batch_iter)
         metrics = []
         for batch in batch_iter:
             self._step_num += 1
@@ -323,10 +386,28 @@ class BaseTrainer:
         return metrics
 
     # ------------------------------------------------------------ validation
+    def predict_split(self, predict, n_rows):
+        """``predict(pick)`` -> [len(pick), ...] over the rows of an
+        ``n_rows`` batch that every rank holds whole, split over the ranks:
+        each predicts its share (the batch padded to a multiple of the
+        rank count with copies of its last row) and the shares are
+        gathered in order.  ``pick`` indexes the batch's rows (all of them,
+        ``slice(None)``, on one process).  Returns ``n_rows`` rows."""
+        d = PC.size(self.group)
+        if d == 1:
+            return predict(slice(None))
+        n_pad = -(-n_rows // d) * d
+        rows = self.local_rows(n_pad)
+        pick = torch.arange(rows.start, rows.stop,
+                            device=self.device).clamp(max=n_rows - 1)
+        return PC.all_gather_rows(predict(pick), self.group)[:n_rows]
+
     def _validate_heads(self, models, with_mean):
         """Validation pass of several heads over the resident validation
         set with the reference's counter weighting; one device-to-host
-        read per batch.  Returns (preds, accs, errs), one entry per head."""
+        read per batch.  Data parallel, each rank predicts its share of
+        every batch and all compute the PCK of the whole batch.  Returns
+        (preds, accs, errs), one entry per head."""
         cfg = self.cfg
         n_heads, k = len(self.valid_heads), cfg.kps_count
         assert n_heads == len(models) + bool(with_mean)
@@ -334,9 +415,14 @@ class BaseTrainer:
         err_cs = [L.AvgCounters() for _ in range(n_heads)]
         preds_arrays = [[] for _ in range(n_heads)]
         for idxs in valid_batches(self.n_valid, cfg.infer_bs):
-            imgs, kps, _ = self.fetch_batch(self.valid_data, idxs)
-            coords, errs, accs = validate_heads_batch(
-                models, imgs, kps, self.means, cfg, with_mean)
+            imgs, kps = self.gather_rows(self.valid_data, idxs,
+                                         ("images", "kps"))
+            coords = self.predict_split(
+                lambda pick: predict_heads_batch(
+                    models, imgs[pick], self.means, cfg,
+                    with_mean).transpose(0, 1),
+                len(idxs)).transpose(0, 1)
+            errs, accs = pck_heads(coords, kps, cfg)
             sizes = [coords.numel(), errs.numel(), accs.numel()]
             host = torch.cat([coords.flatten(), errs.flatten(),
                               accs.flatten()]).cpu().split(sizes)
@@ -376,9 +462,20 @@ class BaseTrainer:
         state["optim_state"] = self.optimizer.state_dict()
         return state
 
+    def save(self, base_path, epo, is_best):
+        """Write the checkpoint of epoch ``epo`` (rank 0 writes; every rank
+        takes part in gathering the pseudo-round state)."""
+        extra = {"best_acc": self.best_acc, "best_epoch": self.best_epoch,
+                 **self._pseudo_checkpoint_meta()}
+        if PC.is_writer():
+            save_checkpoint(base_path, epo, self.checkpoint_state(), is_best,
+                            extra=extra)
+
     def resume(self, base_path, best=False):
         """Restore networks, optimiser and counters from ``base_path``;
-        returns the epoch to continue from (0 without a checkpoint)."""
+        returns the epoch to continue from (0 without a checkpoint).  Data
+        parallel, every rank reads it after a barrier."""
+        PC.barrier(self.group)
         state, meta = restore_checkpoint(base_path, best=best)
         if state is None:
             return 0
@@ -409,12 +506,16 @@ class BaseTrainer:
         """The pseudo-round state for the checkpoint (host tensors): rounds
         spent, the injected kps / islabeled and the LMA distance histories
         ``[3, N, K, 3]`` (NaN where empty), so a resumed run continues from
-        the same dataset and round budget as an uninterrupted one."""
+        the same dataset and round budget as an uninterrupted one.  Data
+        parallel, the ranks' rows of kps / islabeled are gathered (the
+        padded arrays, as the JAX package saves its sharded ones)."""
         if self._pseudo_rounds_done == 0:
             return {}
+        data = self.train_data
         meta = {"pseudo_rounds_done": self._pseudo_rounds_done,
-                "pseudo_kps": self.train_data.kps.cpu(),
-                "pseudo_islabeled": self.train_data.islabeled.cpu()}
+                "pseudo_kps": PC.all_gather_rows(data.kps, self.group).cpu(),
+                "pseudo_islabeled": PC.all_gather_rows(
+                    data.islabeled, self.group).cpu()}
         loop = self._pseudo_loop
         if loop is not None and loop.lma_ext is not None:
             meta["pseudo_lma"] = torch.from_numpy(np.stack(
@@ -424,25 +525,31 @@ class BaseTrainer:
 
     def _restore_pseudo_state(self, meta):
         """Put a checkpoint's pseudo-round state back (regimes without the
-        rounds ignore it); a dataset of another shape raises."""
+        rounds ignore it); a dataset of another (padded) shape raises with
+        the JAX package's message.  Each rank takes its own rows."""
         rounds = meta.get("pseudo_rounds_done")
         if not rounds or not self.supports_pseudo_loop:
             return
         kps, islabeled = meta["pseudo_kps"], meta["pseudo_islabeled"]
-        have = (tuple(self.train_data.kps.shape),
-                tuple(self.train_data.islabeled.shape))
-        if (tuple(kps.shape), tuple(islabeled.shape)) != have:
+        data = self.train_data
+        have = (data.total,) + tuple(data.kps.shape[1:])
+        if tuple(kps.shape) != have or tuple(islabeled.shape) != have[:1]:
+            # the padding depends on the mesh (a multiple of its batch
+            # axes), so a checkpoint from another device count can carry
+            # differently padded arrays
             raise ValueError(
                 f"pseudo-state resume: checkpointed kps {tuple(kps.shape)} "
-                f"vs dataset {have[0]} — the checkpoint was written for "
-                "another training set; resume with the same data or "
-                "restart the pseudo rounds")
+                f"vs dataset {have} — the checkpoint was written with a "
+                "different mesh/device count; resume on a matching mesh "
+                "(mesh_shape) or restart the pseudo rounds")
         # the loop first: its reset baseline must be the pristine arrays,
         # and train_data is still pristine here
         loop = self._ensure_pseudo_loop()
         self._pseudo_rounds_done = int(rounds)
-        self.train_data = self.train_data._replace(
-            kps=kps.to(self.device), islabeled=islabeled.to(self.device))
+        rows = slice(data.offset, data.offset + data.kps.shape[0])
+        self.train_data = data._replace(
+            kps=kps[rows].to(self.device),
+            islabeled=islabeled[rows].to(self.device))
         lma = meta.get("pseudo_lma")
         if lma is not None and loop.lma_ext is not None:
             lma = lma.numpy()
@@ -452,8 +559,7 @@ class BaseTrainer:
         self.logger.print(
             "L2", "resumed pseudo-round state: {} round(s) spent, "
             "{} sample(s) in the labeled pool".format(
-                self._pseudo_rounds_done,
-                int(self.train_data.islabeled.sum())))
+                self._pseudo_rounds_done, int(islabeled.sum())))
 
     def maybe_pseudo_round(self, epo, base_path=None):
         """``cfg.pseudo_rounds > 0``: one UBPL selection round every
@@ -480,7 +586,7 @@ class BaseTrainer:
                 self._pseudo_rounds_done, cfg.pseudo_rounds, n_sel,
                 float(sel.sel_accs[-1]), float(sel.sel_errs[-1]),
                 sel.threshold))
-        if base_path:
+        if base_path and PC.is_writer():
             json_save({"epoch": epo + 1, "selected": n_sel,
                        "threshold": sel.threshold,
                        "sel_counts": np.asarray(sel.sel_counts).tolist(),
@@ -493,18 +599,23 @@ class BaseTrainer:
     def maybe_debug_draw(self, base_path, epo):
         """``cfg.debug``: dump the augmentation of the first labeled batch
         (up to 4 samples; draws from ``cfg.seed + epo``, apart from the
-        training stream) under ``{base_path}/draw`` (reference --debug)."""
+        training stream) under ``{base_path}/draw`` (reference --debug).
+        Data parallel, every rank takes part in the gather and rank 0
+        draws."""
         if not (self.cfg.debug and base_path):
             return
         from ..utils.draw import DebugDrawer
         cfg = self.cfg
         idxs = np.asarray(self.labeled_idxs[:min(4, len(self.labeled_idxs))])
         if self.train_data is not None:
-            imgs, kps, _ = self.fetch_batch(self.train_data, idxs)
+            imgs, kps = self.gather_rows(self.train_data, idxs,
+                                         ("images", "kps"))
         else:       # stream_data: gather from the host arrays
             i = torch.as_tensor(idxs)
             imgs = self.train_host.images[i].to(self.device)
             kps = self.train_host.kps[i].to(self.device)
+        if not PC.is_writer():
+            return
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed + epo)
         view = make_view(imgs, kps, torch.zeros(3, device=self.device), cfg,
@@ -519,8 +630,11 @@ class BaseTrainer:
         per head -> checkpoint (with the pseudo-round state) and JSON logs
         under ``base_path`` -> the epoch's log line -> stop here if a
         preemption was requested; then the report.  Returns the per-epoch
-        history."""
+        history.  Data parallel, rank 0 alone traces, writes and logs (no
+        collective on those paths), and a preemption requested on any rank
+        stops every rank after the same checkpoint."""
         cfg = self.cfg
+        writer = PC.is_writer()
         if resume and base_path:
             start_epoch = self.resume(base_path)
         history = []
@@ -530,7 +644,7 @@ class BaseTrainer:
             self.maybe_debug_draw(base_path, epo)
             schedules = self.epoch_schedules(epo)
             with trace(cfg.profile_dir, enabled=cfg.profile_dir is not None
-                       and epo == start_epoch):
+                       and epo == start_epoch and writer):
                 losses = self.train_epoch(epo, schedules)
             preds, accs, errs = self.validate()
             self.maybe_pseudo_round(epo, base_path)
@@ -541,11 +655,8 @@ class BaseTrainer:
                 if flag:
                     self.best_epoch[m], self.best_acc[m] = epo, accs[m][-1]
             if base_path:
-                save_checkpoint(base_path, epo, self.checkpoint_state(),
-                                is_best[-1],
-                                extra={"best_acc": self.best_acc,
-                                       "best_epoch": self.best_epoch,
-                                       **self._pseudo_checkpoint_meta()})
+                self.save(base_path, epo, is_best[-1])
+            if base_path and writer:
                 if epo == start_epoch:
                     cfg.to_json(f"{base_path}/logs/args.json")
                 json_save({**losses, "accs": accs, "errs": errs},
@@ -561,12 +672,13 @@ class BaseTrainer:
                         self.format_epoch_log(losses, accs, errs)),
                 start=epo_tm)
             history.append({**losses, "accs": accs, "errs": errs})
-            if base_path and self._preemption_requested():
+            if base_path and PC.any_true(self._preemption_requested(),
+                                         self.group):
                 self.logger.print("L1", "preemption requested — checkpointed "
                                         f"at epoch {epo + 1}; resume with "
                                         "run(resume=True)")
                 break
-        if base_path and history:
+        if base_path and history and writer:
             self._write_report(base_path, history)
         return history
 
@@ -594,21 +706,81 @@ class BaseTrainer:
         rep.to_xlsx(f"{base_path}/logs/report.xlsx", highlight_column="acc")
 
 
-def make_experiment(cfg: Config, exp_mark: str):
-    """Reference exec(): experiment naming + logger + base path."""
-    experiment = "{}({}_{})_{}_{}".format(
+def experiment_name(cfg: Config, exp_mark: str):
+    return "{}({}_{})_{}_{}".format(
         cfg.data_source, cfg.train_count, cfg.label_ratio, exp_mark,
         datetime.datetime.now().strftime("%Y%m%d%H%M%S"))
+
+
+def make_experiment(cfg: Config, exp_mark: str, experiment=None):
+    """Reference exec(): experiment naming + logger + base path
+    (``experiment`` given: that name)."""
+    experiment = experiment or experiment_name(cfg, exp_mark)
     base_path = f"{cfg.experiment_root}/{experiment}"
     logger = Logger(experiment, base_path=base_path)
     return experiment, base_path, logger
 
 
-def run_regime(trainer_cls, exp_mark: str, params=None, device=None):
-    """Shared exec() body of every regime's entry point: config override,
-    experiment naming, the trainer on ``device`` (None: the card), its
-    run.  Returns the history."""
+def regime_mesh(cfg: Config, device=None):
+    """The mesh of an entry point: ``parallel.build_mesh`` over the cards
+    of this host (over torchrun's world when it started the process).  On
+    the CPU (``device="cpu"``) the mesh may ask for as many processes as it
+    likes, and ``mesh_shape=None`` runs one process: the JAX package's CPU
+    auto-mesh over virtual devices has no counterpart."""
+    if under_torchrun():
+        n = world_size_from_env()
+    elif device is not None and torch.device(device).type == "cpu":
+        if cfg.mesh_shape is None:
+            return None
+        n = None
+    else:
+        n = local_mesh_size()
+    if n is None:
+        n = int(np.prod(cfg.mesh_shape))
+    return build_mesh(cfg, n)
+
+
+def _run_rank(ctx, trainer_cls, exp_mark, params, experiment, guard):
+    """One rank of ``run_regime``'s data-parallel run (``experiment``
+    None under torchrun: rank 0 names the run; ``guard``: install a
+    PreemptionGuard, as the launching process has one)."""
     cfg = Config().override(params)
     np.random.seed(cfg.seed)
-    _, base_path, logger = make_experiment(cfg, exp_mark)
-    return trainer_cls(cfg, device=device, logger=logger).run(base_path)
+    if guard:
+        PreemptionGuard.get()
+    if experiment is None:
+        import torch.distributed as dist
+        names = [experiment_name(cfg, exp_mark)]
+        dist.broadcast_object_list(names, 0)
+        experiment = names[0]
+    base_path = f"{cfg.experiment_root}/{experiment}"
+    logger = (make_experiment(cfg, exp_mark, experiment)[2]
+              if PC.is_writer() else None)
+    return trainer_cls(cfg, device=ctx.device, logger=logger,
+                       mesh=ctx.mesh).run(base_path)
+
+
+def run_regime(trainer_cls, exp_mark: str, params=None, device=None):
+    """Shared exec() body of every regime's entry point: config override,
+    experiment naming, the device mesh (``Config.mesh_shape``/
+    ``mesh_axes``, ``regime_mesh``), the trainer on ``device`` (None: the
+    card) or one trainer per device of the mesh (``parallel.launch``), its
+    run.  A mesh of one device trains in this process, as the JAX package's
+    one-device mesh is its single-device path.  Returns the history (rank
+    0's under torchrun: every rank has the same)."""
+    cfg = Config().override(params)
+    np.random.seed(cfg.seed)
+    mesh = regime_mesh(cfg, device)
+    if mesh is None or mesh.size == 1:
+        _, base_path, logger = make_experiment(cfg, exp_mark)
+        return trainer_cls(cfg, device=device, logger=logger).run(base_path)
+    device_type = "cpu" if (device is not None and torch.device(
+        device).type == "cpu") else "cuda"
+    experiment = None
+    if not under_torchrun():
+        experiment, _, logger = make_experiment(cfg, exp_mark)
+        logger.print("L1", "=> mesh {} over {} devices ({} processes)"
+                     .format(mesh.shape, mesh.size, mesh.size))
+    guard = PreemptionGuard._installed is not None
+    return launch(_run_rank, mesh, device_type,
+                  args=(trainer_cls, exp_mark, params, experiment, guard))[0]

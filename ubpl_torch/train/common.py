@@ -19,29 +19,51 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..data.arrays import PoseArrays, pad_to_multiple
 from ..device import autocast, memory_format
 from ..models.layers import BatchNorm
 from ..ops import augment as A
 from ..ops import heatmap as HM
 from ..ops import pck as PCK
 from ..ops.kernels import heatmap_synth
+from ..parallel.mesh import batch_mult, batch_rows
 
 
 class DeviceDataset(NamedTuple):
-    images: torch.Tensor     # [N, R, R, 3] uint8 (BGR)
-    kps: torch.Tensor        # [N, K, 3] float32 (inp_res coords)
-    kps_test: torch.Tensor   # [N, K, 3]
-    islabeled: torch.Tensor  # [N] int32
+    images: torch.Tensor     # [n, R, R, 3] uint8 (BGR)
+    kps: torch.Tensor        # [n, K, 3] float32 (inp_res coords)
+    kps_test: torch.Tensor   # [n, K, 3]
+    islabeled: torch.Tensor  # [n] int32
     means: torch.Tensor      # [3]
+    #: global index of row 0: the rows held are [offset, offset + n) of
+    #: the (padded) dataset
+    offset: int = 0
+    #: global row count, padding included
+    total: int = 0
 
 
-def put_dataset(images, kps, kps_test, islabeled, means, device):
-    """Place a dataset (numpy arrays) in device memory."""
-    def put(x, dtype=None):
-        return torch.as_tensor(np.asarray(x, dtype=dtype), device=device)
-    return DeviceDataset(put(images), put(kps, np.float32),
-                         put(kps_test, np.float32), put(islabeled, np.int32),
-                         put(means, np.float32))
+def put_dataset(images, kps, kps_test, islabeled, means, device, mesh=None,
+                rank=0):
+    """Place a dataset (numpy arrays) in device memory.  On a ``mesh`` the
+    sample axis is padded to ``batch_mult`` (``data.arrays.
+    pad_to_multiple``) and this rank keeps only its ``batch_rows`` of it,
+    as ``_dataset_sharding`` shards it over the batch axes in the JAX
+    package: each card holds N/d samples."""
+    arrays = pad_to_multiple(PoseArrays(
+        np.asarray(images), np.asarray(kps, np.float32),
+        np.asarray(kps_test, np.float32), np.asarray(islabeled, np.int32),
+        []), batch_mult(mesh))
+    total = arrays.images.shape[0]
+    rows = batch_rows(mesh, rank, total)
+    rows = slice(rows.start, rows.stop)
+
+    def put(x):
+        return torch.as_tensor(x[rows], device=device)
+    return DeviceDataset(put(arrays.images), put(arrays.kps),
+                         put(arrays.kps_test), put(arrays.islabeled),
+                         torch.as_tensor(np.asarray(means, np.float32),
+                                         device=device),
+                         offset=rows.start, total=total)
 
 
 class ViewBatch(NamedTuple):
@@ -185,16 +207,12 @@ def sample_weights(islabeled, pseudo_weight):
 
 
 @torch.inference_mode()
-def validate_heads_batch(models, images_u8, kps, means, cfg, with_mean):
-    """Validation step over several heads (``ubpl_tpu/train/base_trainer.
-    py:554-584``): eval forward of every model on the same batch, last
-    stack, ``decode_heatmaps_mul``, the mean of the heads' coordinates
-    appended as one more head when ``with_mean``, then PCK per head
-    (reference utils/evaluation.py:92-115).
-
-    Returns (coords [M', B, K, 2], errs [M', K+1], accs [M', K+1]) with
-    M' = len(models) + with_mean.
-    """
+def predict_heads_batch(models, images_u8, means, cfg, with_mean):
+    """The predictions of the validation step (``ubpl_tpu/train/
+    base_trainer.py:554-584``): eval forward of every model on the same
+    batch, last stack, ``decode_heatmaps_mul``, the mean of the heads'
+    coordinates appended as one more head when ``with_mean``.  Returns
+    coords [M', B, K, 2] with M' = len(models) + with_mean."""
     B, dev = images_u8.shape[0], images_u8.device
     imgs = A.color_normalize(images_to_float(images_u8), means)
     last = torch.stack([
@@ -206,9 +224,17 @@ def validate_heads_batch(models, images_u8, kps, means, cfg, with_mean):
         last, center, scale, (cfg.out_res, cfg.out_res))
     if with_mean:
         coords = torch.cat([coords, coords_mean[None]], 0)
+    return coords
+
+
+@torch.inference_mode()
+def pck_heads(coords, kps, cfg):
+    """PCK per head of coords [M', B, K, 2] against kps [B, K, 3]
+    (reference utils/evaluation.py:92-115): (errs, accs), each
+    [M', K+1]."""
     pck_ref = tuple(int(i) for i in cfg.pck_ref)
     pck = [PCK.acc_pck(c, kps, pck_ref, float(cfg.pck_thr)) for c in coords]
-    return (coords, torch.stack([e for e, _ in pck]),
+    return (torch.stack([e for e, _ in pck]),
             torch.stack([a for _, a in pck]))
 
 

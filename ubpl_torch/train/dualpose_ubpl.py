@@ -21,23 +21,26 @@ AdamW over both students and the EMA.  ``dualpose`` is the
 same trainer with FDL off and no EPC (``ubpl_tpu/__main__.py:63-67``).
 ``Config.fuse_teacher_forward`` stacks the four forwards into one XLA
 program in the JAX package and leaves the values unchanged; it is ignored
-here.
+here.  Data parallel, the counts, gradients and metrics are global as in
+``mt_ubpl.teacher_student_step``.
 """
 import torch
 
 from . import losses as L
 from .base_trainer import run_regime
 from .common import sample_weights
-from .mt_ubpl import (MTUBPLTrainer, _forward_views, _weighted, loss_groups,
+from .mt_ubpl import (MTUBPLTrainer, _forward_views, _weighted, fdc_loss,
+                      global_counts, global_metrics, loss_groups,
                       optimize_and_ema)
 
 
 def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
                   islabeled, cons_weight, fdl_weight, pseudo_weight,
-                  ema_alpha, cfg):
+                  ema_alpha, cfg, group=None):
     """One DualPose(_UBPL) step (``ubpl_tpu/train/dualpose_ubpl.py:
     76-196``) of M branches on built views; device-tensor metrics as
-    ``mt_ubpl.teacher_student_step`` returns them."""
+    ``mt_ubpl.teacher_student_step`` returns them (``group``: the ranks
+    that split the batch)."""
     M = len(students)
     sw_pos, sw_nega, sw_cons = sample_weights(islabeled, pseudo_weight)
     use_epc = bool(cfg.use_ensemble_pseudo)
@@ -71,9 +74,13 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
             n_sel = n_sel + stats.num_selected
     sums = {k: torch.stack([torch.as_tensor(x, device=zero.device)
                             for x in v]) for k, v in sums.items()}
-    mtc = _weighted(sums["mtc"], sums["mtc_n"], cons_weight)
-    pec = _weighted(sums["pec"], sums["pec_n"], cfg.pose_weight)
-    epc = (_weighted(sums["epc"], sums["epc_n"], cfg.ensemble_pseudo_weight)
+    counts = global_counts({"mtc_n": sums["mtc_n"], "pec_n": sums["pec_n"],
+                            "epc_n": sums["epc_n"], "n_pseudo": n_pseudo,
+                            "n_sel": n_sel}, group)
+    mtc = _weighted(sums["mtc"], counts["mtc_n"], cons_weight)
+    pec = _weighted(sums["pec"], counts["pec_n"], cfg.pose_weight)
+    epc = (_weighted(sums["epc"], counts["epc_n"],
+                     cfg.ensemble_pseudo_weight)
            if use_epc else torch.zeros_like(mtc))
 
     fdc = fdc_count = zero
@@ -81,20 +88,18 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
         fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
                     "all": torch.ones_like(sw_pos, dtype=torch.bool)
                     }[cfg.fdl_label]
-        fdl = (L.features_cov_masked if cfg.fdl_type == "covariance"
-               else L.joint_feature_dist_masked)
-        c, fdc_count = fdl(feats[0], feats[1], fdl_mask)
-        fdc = fdl_weight * torch.where(fdc_count > 0,
-                                       c / fdc_count.clamp(min=1), c)
+        fdc, fdc_count = fdc_loss([feats[0]], [feats[1]], fdl_mask,
+                                  fdl_weight, cfg, group)
 
     loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
     optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha)
-    return {"pec": pec.detach(), "pec_count": sums["pec_n"],
-            "mtc": mtc.detach(), "mtc_count": sums["mtc_n"],
-            "epc": epc.detach(), "epc_count": sums["epc_n"],
-            "fdc": fdc.detach(), "fdc_count": fdc_count,
-            "n_pseudo": n_pseudo, "n_sel": n_sel}
+                     mld_alpha, group)
+    return global_metrics(
+        {"pec": pec.detach(), "pec_count": counts["pec_n"],
+         "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
+         "epc": epc.detach(), "epc_count": counts["epc_n"],
+         "fdc": fdc.detach(), "fdc_count": fdc_count,
+         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group)
 
 
 class DualPoseUBPLTrainer(MTUBPLTrainer):
@@ -112,7 +117,7 @@ class DualPoseUBPLTrainer(MTUBPLTrainer):
                                   occlude=cfg.use_occlusion_ema)
         return dualpose_step(self.students, self.teachers, self.optimizer,
                              stu, ema, islabeled, cons_weight, fdl_weight,
-                             pseudo_weight, ema_alpha, cfg)
+                             pseudo_weight, ema_alpha, cfg, self.group)
 
 
 def exec_regime(exp_mark="DualPose_UBPL", params=None, device=None):

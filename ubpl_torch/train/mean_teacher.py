@@ -5,7 +5,8 @@ teacher, two independently augmented views per batch, consistency on the
 last stacks (MTC) plus the gated pose loss (PEC) on both views,
 epoch-indexed EMA, two-stream batches (unlabeled first, then labeled).  The
 step is the single-branch case of ``mt_ubpl.teacher_student_step`` with the
-ensemble pseudo-label and feature-decorrelation terms off.
+ensemble pseudo-label and feature-decorrelation terms off (its global
+counts, gradients and metrics with it, data parallel).
 """
 from . import losses as L
 from . import schedules as S
@@ -14,13 +15,13 @@ from .mt_ubpl import teacher_student_step
 
 
 def mean_teacher_step(student, teacher, optimizer, views, islabeled,
-                      cons_weight, ema_alpha, cfg):
+                      cons_weight, ema_alpha, cfg, group=None):
     """One MT step (``ubpl_tpu/train/mean_teacher.py:66-138``) on built
     views; returns device-tensor metrics {"pec_loss", "pec_count",
     "mtc_loss", "mtc_count"}."""
     m = teacher_student_step([student], [teacher], optimizer, views,
                              islabeled, cons_weight, 0.0, 0.0, ema_alpha,
-                             cfg, use_epc=False, use_fdc=False)
+                             cfg, use_epc=False, use_fdc=False, group=group)
     return {"pec_loss": m["pec"][0], "pec_count": m["pec_count"][0],
             "mtc_loss": m["mtc"][0], "mtc_count": m["mtc_count"][0]}
 
@@ -37,7 +38,8 @@ class MeanTeacherTrainer(BaseTrainer):
         views, islabeled = self.make_views(idxs, self.n_views)
         return mean_teacher_step(self.students[0], self.teachers[0],
                                  self.optimizer, views, islabeled,
-                                 cons_weight, ema_alpha, self.cfg)
+                                 cons_weight, ema_alpha, self.cfg,
+                                 self.group)
 
     def epoch_schedules(self, epo):
         cfg = self.cfg

@@ -17,7 +17,10 @@ norm over every parameter the optimiser holds — in the dual-branch trainers
 the parameters of BOTH students together, as the JAX package reduces over
 its stacked branch axis.  The step (``mt_ubpl.optimize_and_ema``) runs one
 forward and two ``torch.autograd.grad`` pullbacks, combines them here and
-hands the result to AdamW.
+hands the result to AdamW.  Data parallel, ``mld_combine`` takes gradients
+already summed over the ranks (the step all-reduces both pullbacks first),
+so its norms and inner product are the global gradients', as in the JAX
+package, and every rank computes the same combination.
 """
 import torch
 

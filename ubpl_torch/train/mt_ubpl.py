@@ -23,9 +23,17 @@ one backward, one AdamW step over both students, then the EMA — with no
 host sync: every metric stays a device tensor.  With ``optimizer="mld"``
 the backward is two pullbacks, PEC and the rest (``loss_groups``), combined
 by the MLD gradient surgery (``train/mld_optim.py``) before AdamW.
+
+Data parallel (``group``: the ranks that split the batch), every count is
+summed over the ranks in one collective before a loss is formed, and each
+rank's loss is ``w * local sum / global count``: the sum of the ranks'
+gradients is then the gradient of the global loss, and the gradients are
+summed (``parallel.collectives.all_reduce_grads``) before AdamW, so every
+rank takes the same step.  The returned metrics are global.
 """
 import torch
 
+from ..parallel import collectives as PC
 from . import losses as L
 from . import schedules as S
 from .base_trainer import BaseTrainer, run_regime
@@ -56,8 +64,24 @@ def _weighted(sums, counts, w):
     return w * torch.where(counts > 0, sums / counts.clamp(min=1), sums)
 
 
+def global_counts(counts, group):
+    """Sum a dict of count tensors over the group in one collective."""
+    keys = list(counts)
+    return dict(zip(keys, PC.all_reduce_packed(
+        [counts[k] for k in keys], group, torch.float32)))
+
+
+def global_metrics(metrics, group):
+    """The metrics of the global batch: each rank's loss share summed over
+    the group (the counts are global already), in one collective."""
+    keys = [k for k in metrics if not k.endswith("_count")
+            and k not in ("n_pseudo", "n_sel")]
+    summed = PC.all_reduce_packed([metrics[k] for k in keys], group)
+    return {**metrics, **dict(zip(keys, summed))}
+
+
 def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha=None):
+                     mld_alpha=None, group=None):
     """One optimiser step over the students, then each teacher's
     parameters (not its BatchNorm stats) move to ``ema_alpha * teacher +
     (1 - ema_alpha) * student``.
@@ -65,13 +89,18 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
     ``loss`` is the summed loss (one backward), or with ``mld_alpha`` set
     (``Config.optimizer="mld"``) the pair (primary, secondary): their two
     gradients over the students' parameters are combined by
-    ``mld_optim.mld_combine`` and written into ``.grad``."""
+    ``mld_optim.mld_combine`` and written into ``.grad``.  With a
+    ``group`` the gradients (both pullbacks for MLD, whose norms and inner
+    product are over the global gradients) are summed over the ranks
+    before they are used."""
     optimizer.zero_grad(set_to_none=True)
+    params = [p for s in students for p in s.parameters()]
     if mld_alpha is None:
         loss.backward()
+        PC.all_reduce_grads([p.grad for p in params], group)
     else:
-        params = [p for s in students for p in s.parameters()]
         g_pri, g_sec = mld_gradients(*loss, params)
+        PC.all_reduce_grads(g_pri + g_sec, group)
         for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha)):
             p.grad = g
     optimizer.step()
@@ -93,9 +122,32 @@ def loss_groups(pec, mtc, epc, fdc, cfg):
     return pri + sec, None
 
 
+def fdc_loss(feats_a, feats_b, fdl_mask, fdl_weight, cfg, group):
+    """FDC between two branches' features, one pair per view, over the
+    ``fdl_mask`` samples; returns (loss, global count).
+
+    ``features_cov_masked`` returns the mean over its view's selection;
+    per view it is turned back into a sum and divided by the view's global
+    count, so that the ranks' losses add up to the global loss."""
+    fdl = (L.features_cov_masked if cfg.fdl_type == "covariance"
+           else L.joint_feature_dist_masked)
+    parts = [fdl(fa, fb, fdl_mask) for fa, fb in zip(feats_a, feats_b)]
+    counts = global_counts({a: n for a, (_, n) in enumerate(parts)}, group)
+    total = zero = torch.zeros((), device=fdl_mask.device)
+    for a, (c, n) in enumerate(parts):
+        if cfg.fdl_type == "covariance":
+            per_view = feats_a[a].shape[1] * feats_a[a].shape[2]   # N * C
+            c = c * n / torch.clamp(counts[a], min=per_view)
+        total = total + c
+    fdc_count = sum(counts.values(), zero)
+    return (fdl_weight * torch.where(fdc_count > 0,
+                                     total / fdc_count.clamp(min=1), total),
+            fdc_count)
+
+
 def teacher_student_step(students, teachers, optimizer, views, islabeled,
                          cons_weight, fdl_weight, pseudo_weight, ema_alpha,
-                         cfg, *, use_epc, use_fdc):
+                         cfg, *, use_epc, use_fdc, group=None):
     """One optimisation step of M (student, EMA teacher) branches on built
     views: M = 2 with EPC and FDC is MT_UBPL, M = 1 without them is MT.
 
@@ -104,7 +156,8 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
     parameters.  After the optimiser step each teacher's parameters (not
     its BatchNorm stats) move to ``ema_alpha * teacher + (1 - ema_alpha) *
     student`` with the NEW student parameters.  Returns device-tensor
-    metrics; the per-branch ones have shape [M].
+    metrics; the per-branch ones have shape [M].  ``group``: the ranks
+    that split the batch (see the module docstring).
     """
     M = len(students)
     sw_pos, sw_nega, _ = sample_weights(islabeled, pseudo_weight)
@@ -139,9 +192,13 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
                 n_pseudo = n_pseudo + stats.num_pseudo
                 n_sel = n_sel + stats.num_selected
     sums = {k: torch.stack(v) for k, v in sums.items()}
-    mtc = _weighted(sums["mtc"], sums["mtc_n"], cons_weight)
-    pec = _weighted(sums["pec"], sums["pec_n"], cfg.pose_weight)
-    epc = (_weighted(sums["epc"], sums["epc_n"], cfg.ensemble_pseudo_weight)
+    counts = global_counts({"mtc_n": sums["mtc_n"], "pec_n": sums["pec_n"],
+                            "epc_n": sums["epc_n"], "n_pseudo": n_pseudo,
+                            "n_sel": n_sel}, group)
+    mtc = _weighted(sums["mtc"], counts["mtc_n"], cons_weight)
+    pec = _weighted(sums["pec"], counts["pec_n"], cfg.pose_weight)
+    epc = (_weighted(sums["epc"], counts["epc_n"],
+                     cfg.ensemble_pseudo_weight)
            if use_epc else torch.zeros_like(mtc))
 
     fdc = fdc_count = zero
@@ -150,34 +207,29 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
         fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
                     "all": torch.ones_like(sw_pos, dtype=torch.bool)
                     }[cfg.fdl_label]
-        fdl = (L.features_cov_masked if cfg.fdl_type == "covariance"
-               else L.joint_feature_dist_masked)
-        fdc_sum = zero
-        for a in range(len(views)):
-            c, n = fdl(feats[0][a], feats[1][a], fdl_mask)
-            fdc_sum, fdc_count = fdc_sum + c, fdc_count + n
-        fdc = fdl_weight * torch.where(fdc_count > 0,
-                                       fdc_sum / fdc_count.clamp(min=1),
-                                       fdc_sum)
+        fdc, fdc_count = fdc_loss(feats[0], feats[1], fdl_mask, fdl_weight,
+                                  cfg, group)
 
     loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
     optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha)
-    return {"pec": pec.detach(), "pec_count": sums["pec_n"],
-            "mtc": mtc.detach(), "mtc_count": sums["mtc_n"],
-            "epc": epc.detach(), "epc_count": sums["epc_n"],
-            "fdc": fdc.detach(), "fdc_count": fdc_count,
-            "n_pseudo": n_pseudo, "n_sel": n_sel}
+                     mld_alpha, group)
+    return global_metrics(
+        {"pec": pec.detach(), "pec_count": counts["pec_n"],
+         "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
+         "epc": epc.detach(), "epc_count": counts["epc_n"],
+         "fdc": fdc.detach(), "fdc_count": fdc_count,
+         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group)
 
 
 def mt_ubpl_step(students, teachers, optimizer, views, islabeled,
-                 cons_weight, fdl_weight, pseudo_weight, ema_alpha, cfg):
+                 cons_weight, fdl_weight, pseudo_weight, ema_alpha, cfg,
+                 group=None):
     """One MT_UBPL step (``ubpl_tpu/train/mt_ubpl.py:95-239``) of two
     branches on built views; see ``teacher_student_step``."""
     return teacher_student_step(
         students, teachers, optimizer, views, islabeled, cons_weight,
         fdl_weight, pseudo_weight, ema_alpha, cfg,
-        use_epc=bool(cfg.use_ensemble_pseudo), use_fdc=True)
+        use_epc=bool(cfg.use_ensemble_pseudo), use_fdc=True, group=group)
 
 
 class MTUBPLTrainer(BaseTrainer):
@@ -199,7 +251,7 @@ class MTUBPLTrainer(BaseTrainer):
         views, islabeled = self.make_views(idxs, self.n_views)
         return mt_ubpl_step(self.students, self.teachers, self.optimizer,
                             views, islabeled, cons_weight, fdl_weight,
-                            pseudo_weight, ema_alpha, self.cfg)
+                            pseudo_weight, ema_alpha, self.cfg, self.group)
 
     def epoch_schedules(self, epo):
         return S.ssl_epoch_schedules(self.cfg, epo)

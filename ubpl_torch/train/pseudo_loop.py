@@ -26,6 +26,12 @@ can feed ``jax.random``'s; ``round_draws`` gives the trainer's default, a
 ``torch.Generator`` seeded from (seed, 7919 + epoch), where the JAX package
 folds ``PRNGKey(seed)`` with ``7919 + epoch``.  The port has no compiled
 step closing over the data, so nothing is rebuilt after an update.
+
+Data parallel (the trainer's ``group``), every rank gathers each inference
+batch whole, draws its augmentations for the whole batch (the generators
+stay in step), predicts its share of the rows and the shares are gathered
+in order (``BaseTrainer.predict_split``); every rank then runs the same
+numpy selection and injects the rows that it holds.
 """
 import numpy as np
 import torch
@@ -102,23 +108,29 @@ class PseudoLabelingLoop:
         them."""
         tr = self.trainer
         idxs = np.asarray(tr.unlabeled_idxs)
-        dev = tr.train_data.images.device
         per_batch = []
         try:
             for lo in range(0, len(idxs), self.batch_size):
-                sel = torch.as_tensor(idxs[lo:lo + self.batch_size],
-                                      device=dev)
-                imgs = tr.train_data.images[sel]
-                kps = tr.train_data.kps_test[sel]
-                views = [self.inference_view(imgs, kps, None)] + [
-                    self.inference_view(imgs, kps, draws(lo, a, len(sel)))
-                    for a in range(self.aug_views)]
-                per_batch.append(torch.stack(
-                    [self.decode(self.back_warped(v)) for v in views]))
+                batch = idxs[lo:lo + self.batch_size]
+                imgs, kps = tr.gather_rows(tr.train_data, batch,
+                                           ("images", "kps_test"))
+                aug = [draws(lo, a, len(batch))
+                       for a in range(self.aug_views)]
+
+                def predict(pick):
+                    im, kp = imgs[pick], kps[pick]
+                    views = [self.inference_view(im, kp, None)] + [
+                        self.inference_view(im, kp, type(d)(
+                            *(x[pick] for x in d))) for d in aug]
+                    return torch.stack([self.decode(self.back_warped(v))
+                                        for v in views]).permute(2, 0, 1, 3, 4)
+
+                per_batch.append(tr.predict_split(predict, len(batch)))
         finally:
             for t in tr.teachers:
                 t.train()
-        coords = torch.cat(per_batch, dim=2).cpu().double().numpy()
+        coords = (torch.cat(per_batch).permute(1, 2, 0, 3, 4)
+                  .cpu().double().numpy())             # [V, M, N, K, 2]
         return coords[0], coords[1:]
 
     # ------------------------------------------------------------ selection
@@ -127,7 +139,8 @@ class PseudoLabelingLoop:
         tr = self.trainer
         cfg = tr.cfg
         idxs = np.asarray(tr.unlabeled_idxs)
-        gts = tr.train_data.kps_test.cpu().numpy()[idxs]   # retained truth
+        gts = tr.gather_rows(tr.train_data, idxs, ("kps_test",))[0] \
+            .cpu().numpy()                                 # retained truth
         ori, augs = self.predict_all(draws)
         ens = P.assess_ensemble(ori[0], ori[1], augs[:, 0], augs[:, 1], gts,
                                 tuple(cfg.pck_ref), cfg.pck_thr)
@@ -155,12 +168,15 @@ class PseudoLabelingLoop:
         enabled pseudo keypoints with vis = 1, and flip their samples into
         the labeled pool (islabeled = 1) so the 'pos' sample weights apply
         PEC to them.  The sampler's index lists stay fixed, as in the
-        reference (its loader is never rebuilt)."""
+        reference (its loader is never rebuilt).  Data parallel, a rank
+        writes the rows it holds."""
         tr = self.trainer
         dev = self._kps0.device
-        rows = torch.as_tensor(np.asarray(sample_idxs), device=dev)
-        on = torch.as_tensor(np.asarray(enable) > 0, device=dev)
-        xy = torch.as_tensor(np.asarray(coords), dtype=torch.float32,
+        local = np.asarray(sample_idxs) - tr.train_data.offset
+        own = (local >= 0) & (local < self._kps0.shape[0])
+        rows = torch.as_tensor(local[own], device=dev)
+        on = torch.as_tensor(np.asarray(enable)[own] > 0, device=dev)
+        xy = torch.as_tensor(np.asarray(coords)[own], dtype=torch.float32,
                              device=dev)
         kps = self._kps0.clone()
         islabeled = self._islabeled0.clone()

@@ -15,6 +15,9 @@ tensors are marked as used by that stream (``record_stream``), so the
 caching allocator does not hand their memory to the next copy early.  A
 staging buffer is written again only after the copy that last read it has
 finished (its event).  On the CPU (tests) a batch is the host gather.
+Data parallel, each rank streams only its rows of each global batch
+(``BaseTrainer.run_train_steps``), as ``_batch_put`` (``:435-450``) puts
+each device's shard.
 """
 from typing import NamedTuple
 

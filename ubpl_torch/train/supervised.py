@@ -5,27 +5,33 @@ with AdamW(lr 2.5e-4, wd 0), JointMSELoss x poseWeight and PCK
 validation.  One step gathers its batch from the device-resident dataset,
 draws its augmentation, builds the view (targets from the Triton kernel:
 one launch per step), runs forward, loss, backward and AdamW — all on the
-device, with no host sync.
+device, with no host sync.  Data parallel (``group``), the count is
+summed over the ranks before the loss is formed, the gradients after the
+backward, and the returned metrics are global.
 """
 import torch
 
 from ..data.sampler import supervised_epoch_batches
+from ..parallel import collectives as PC
 from . import losses as L
 from .base_trainer import BaseTrainer, run_regime
 from .common import forward_heatmaps
 
 
-def supervised_step(model, optimizer, view, cfg):
+def supervised_step(model, optimizer, view, cfg, group=None):
     """One optimisation step on a built view; returns device-tensor
     metrics {"pec_loss", "pec_count"}."""
     preds, _ = forward_heatmaps(model, view.images, True, cfg.compute_dtype,
                                 remat=cfg.remat)
     s, n = L.joint_mse(preds, view.heatmaps)
+    (n,) = PC.all_reduce_packed([n], group)
     loss = cfg.pose_weight * torch.where(n > 0, s / n.clamp(min=1), s)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    PC.all_reduce_grads([p.grad for p in model.parameters()], group)
     optimizer.step()
-    return {"pec_loss": loss.detach(), "pec_count": n}
+    (total,) = PC.all_reduce_packed([loss.detach()], group)
+    return {"pec_loss": total, "pec_count": n}
 
 
 class SupervisedTrainer(BaseTrainer):
@@ -42,7 +48,8 @@ class SupervisedTrainer(BaseTrainer):
 
     def train_step(self, idxs):
         (view,), _ = self.make_views(idxs, 1)
-        return supervised_step(self.model, self.optimizer, view, self.cfg)
+        return supervised_step(self.model, self.optimizer, view, self.cfg,
+                               self.group)
 
     def train_epoch(self, epo, schedules=None):
         counter = L.AvgCounter()

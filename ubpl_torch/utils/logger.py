@@ -4,7 +4,8 @@
 Three severity levels L1 > L2 > L3; each level has its own file and higher
 levels are included in lower files (thresholds 100/90/80).  The console
 prints at a configurable level.  Elapsed-interval formatting follows the
-reference's ``start=`` convention.
+reference's ``start=`` convention.  ``console_level=None`` prints nothing
+(with no ``base_path``: a logger that writes nowhere).
 """
 import datetime
 import os
@@ -15,7 +16,8 @@ _LEVELS = {"L1": 100, "L2": 90, "L3": 80}
 class Logger:
     def __init__(self, experiment, base_path=None, console_level="L1"):
         self.experiment = experiment
-        self.console_threshold = _LEVELS[console_level]
+        self.console_threshold = (_LEVELS[console_level] if console_level
+                                  else float("inf"))
         self.base_path = base_path
         self.files = {}
         if base_path:
