@@ -43,6 +43,23 @@ width through their user entry points:
     rank 0's trace of epoch 1 holds 2 heatmap kernels;
   * dp_nccl (hosts with several cards only): the MT_UBPL step under NCCL
     over 1 and over all cards, step time, images/s and scaling;
+  * train_mt_ubpl_branch: train_mt_ubpl's shape branch-parallel, a
+    ``("model",)`` mesh of 2: two ranks on card 0 under gloo, each with one
+    (student, EMA teacher) branch and the whole batch.  In fp32 with TF32
+    off, step 1 (whole, and with FDC alone) is held to one process's on
+    the same seed and batch (losses, each branch's gradients) and the
+    validation to one process's counters; in float64 step 1 with one
+    process's views; then 8 bf16 steps (2 heatmap launches per step per
+    rank) with the ranks' step time, images/s, peak memory and the branch
+    exchanges' time, and one checkpoint, gathered into one process's
+    layout and written once, that ``PoseEstimator.from_checkpoint`` serves;
+  * cli_mt_ubpl_model: ``python -m ubpl_torch mt_ubpl --synthetic_data=True
+    --mesh_shape=2 --mesh_axes=model`` (two cards under NCCL; one card: two
+    gloo ranks on it) against ``--mesh_shape=1`` in this process, as
+    cli_mt_ubpl_mesh;
+  * model_nccl (hosts with several cards only): the MT_UBPL step under
+    NCCL on 1 card, on ``model=2`` over 2, and on 4 cards ``data=4`` and
+    ``(model=2, data=2)``: step time, images/s and scaling;
   * data_disk: writes a Mouse tree in the reference layout (320 PNG crops of
     320x240, 9 keypoints each, under ``chiprun_out/smoke_data``, removed at
     the end) with the port's ``write_png``, and times ``get_semi_data`` +
@@ -497,6 +514,14 @@ def dp_config(**kw):
 
 
 DP_FP32 = dict(compute_dtype="float32")
+#: fp32 bounds of the branch-parallel step 1 against one process's: each
+#: rank computes its branch on the whole batch as one process does, so
+#: the losses came out equal and the gradients' median per-tensor
+#: difference 4.2e-7 to 7.0e-7 (cuDNN's order of summation; "NVIDIA H100
+#: 80GB HBM3, 700.00 W"); FDC counted on every rank is 100% off in the
+#: FDC-only step
+BRANCH_FP32_RTOL = 1e-6
+BRANCH_FP32_GRAD_MEDIAN = 1e-5
 
 
 def forward_float64(model, images, train, compute_dtype, remat=False):
@@ -516,6 +541,7 @@ def float64_step(device, mesh=None, views=None):
     import torch
     import ubpl_torch.train.common as C
     import ubpl_torch.train.mt_ubpl as MT
+    from ubpl_torch.parallel import collectives as PC
     from ubpl_torch.train.base_trainer import BaseTrainer
     from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
     real = C.forward_heatmaps, MT.forward_heatmaps, BaseTrainer.augmented_view
@@ -527,7 +553,7 @@ def float64_step(device, mesh=None, views=None):
         if views is None:
             seen.append(type(v)(*(t.cpu() for t in v)))
             return v
-        rows = self.local_rows(imgs.shape[0] * self.group.size)
+        rows = self.local_rows(imgs.shape[0] * PC.size(self.group))
         return type(v)(*(t[rows].to(self.device) for t in next(handed)))
     C.forward_heatmaps = MT.forward_heatmaps = forward_float64
     BaseTrainer.augmented_view = view
@@ -643,6 +669,31 @@ def gloo_probe(ctx):
         out[f"all_reduce_ms_{nbytes}_bytes"] = (
             (time.perf_counter() - t0) / n * 1e3)
     return out
+
+
+def fp32_reference(validate=True, **kw):
+    """Step 1 of one process's MT_UBPL trainer in fp32 (TF32 off) on
+    ``dp_config(**kw)``: its batch, metrics, networks after the step,
+    students' gradients and (``validate``) validation, on the host."""
+    import torch
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    one = MTUBPLTrainer(dp_config(**DP_FP32, **kw), device="cuda")
+    sched = tuple(one.epoch_schedules(1).values())
+    batch = list(one.make_sampler())[0]
+    metrics = {k: v.tolist() for k, v in
+               one.run_train_steps([batch], *sched)[0].items()}
+    ref = {"batch": batch.tolist(), "metrics": metrics,
+           "states": {name: {k: t.cpu() for k, t in
+                             net.state_dict().items()}
+                      for name, net in one.networks.items()},
+           "grads": {name: {k: p.grad.cpu() for k, p in
+                            net.named_parameters()}
+                     for name, net in one.networks.items()
+                     if "_ema" not in name},
+           "valid": one.validate() if validate else None}
+    del one
+    torch.cuda.empty_cache()
+    return ref
 
 
 def dp_rank(ctx, ref_path, base):
@@ -806,26 +857,9 @@ def phase_train_mt_ubpl_dp(counts):
     through the host: its times here are not what NCCL across cards
     costs."""
     import torch
-    from ubpl_torch.infer import PoseEstimator
     from ubpl_torch.parallel import make_mesh
     from ubpl_torch.parallel.launch import launch
-    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
-    one = MTUBPLTrainer(dp_config(**DP_FP32), device="cuda")
-    sched = tuple(one.epoch_schedules(1).values())
-    batch = list(one.make_sampler())[0]
-    metrics = {k: v.tolist() for k, v in
-               one.run_train_steps([batch], *sched)[0].items()}
-    ref = {"batch": batch.tolist(), "metrics": metrics,
-           "states": {name: {k: t.cpu() for k, t in
-                             net.state_dict().items()}
-                      for name, net in one.networks.items()},
-           "grads": {name: {k: p.grad.cpu() for k, p in
-                            net.named_parameters()}
-                     for name, net in one.networks.items()
-                     if "_ema" not in name},
-           "valid": one.validate()}
-    del one
-    torch.cuda.empty_cache()
+    ref = fp32_reference()
     views64, metrics64, nets64 = float64_step("cuda")
     ref["views64"] = os.path.join(BUILD, "dp_views64.pt")
     ref["ranks64"] = os.path.join(BUILD, "dp_ranks64.pt")
@@ -858,21 +892,8 @@ def phase_train_mt_ubpl_dp(counts):
                         f"one process's: {own64}")
     for path in (ref["views64"], ref["ranks64"], ref["own64"]):
         os.remove(path)
-    files = sorted(os.listdir(os.path.join(base, "ckpts")))
-    if files != ["checkpoint.pth.tar", "checkpoint_best.pth.tar"]:
-        raise AssertionError(f"checkpoint files {files}")
+    files = serve_world_checkpoint(base)
     cfg = dp_config()
-    est = PoseEstimator.from_checkpoint(
-        base, model=cfg.model, kps_count=cfg.synthetic_kps,
-        means=(0.5, 0.5, 0.5), batch_size=32, device="cuda",
-        compute_dtype=cfg.compute_dtype, inp_res=cfg.inp_res,
-        out_res=cfg.out_res)
-    rng = np.random.default_rng(3)
-    kps, scores = est.predict(rng.integers(
-        0, 256, (8, cfg.inp_res, cfg.inp_res, 3), dtype=np.uint8))
-    if kps.shape != (8, cfg.synthetic_kps, 2):
-        raise AssertionError(f"served shape {kps.shape}")
-    assert_finite("served keypoints", kps, scores)
     launches = {name: sum(r["launches"][name] for r in ranks)
                 for name in ranks[0]["launches"]}
     emit({"phase": "train_mt_ubpl_dp", "problems": problems,
@@ -894,33 +915,63 @@ def phase_train_mt_ubpl_dp(counts):
     return launches
 
 
+def serve_world_checkpoint(base):
+    """The checkpoint a world wrote under ``base``: its two files, served
+    by ``PoseEstimator.from_checkpoint`` on 8 images.  Returns the file
+    names."""
+    from ubpl_torch.infer import PoseEstimator
+    files = sorted(os.listdir(os.path.join(base, "ckpts")))
+    if files != ["checkpoint.pth.tar", "checkpoint_best.pth.tar"]:
+        raise AssertionError(f"checkpoint files {files}")
+    cfg = dp_config()
+    est = PoseEstimator.from_checkpoint(
+        base, model=cfg.model, kps_count=cfg.synthetic_kps,
+        means=(0.5, 0.5, 0.5), batch_size=32, device="cuda",
+        compute_dtype=cfg.compute_dtype, inp_res=cfg.inp_res,
+        out_res=cfg.out_res)
+    rng = np.random.default_rng(3)
+    kps, scores = est.predict(rng.integers(
+        0, 256, (8, cfg.inp_res, cfg.inp_res, 3), dtype=np.uint8))
+    if kps.shape != (8, cfg.synthetic_kps, 2):
+        raise AssertionError(f"served shape {kps.shape}")
+    assert_finite("served keypoints", kps, scores)
+    return files
+
+
 def nccl_rank(ctx, n_steps):
-    """One rank of ``dp_nccl``: bf16 MT_UBPL steps at 16 + 16 rows per
-    rank, timed, then one more under the profiler (rank 0's)."""
+    """One rank of ``dp_nccl`` and ``model_nccl``: bf16 MT_UBPL steps at
+    16 + 16 rows per index of the batch axes (each ``model`` index holds
+    the whole batch of its branch), timed, then one more under the
+    profiler (rank 0's).  Returns the step times, the collectives' and the
+    heatmap kernel's launches in the timed steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.parallel.mesh import batch_mult
     from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
-    n = ctx.mesh.size
+    n = batch_mult(ctx.mesh)
     tr = MTUBPLTrainer(dp_config(train_bs=32 * n, train_bs_labeled=16 * n,
                                  train_count=256 * n), device=ctx.device,
                        mesh=ctx.mesh)
     sched = tuple(tr.epoch_schedules(1).values())
     batches = list(tr.make_sampler())[:n_steps]
     step_ms = []
+    HS.launches = 0
     for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.run_train_steps([b], *sched)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"step_ms": step_ms, "launches": {HS.NAME: HS.launches}}
     if ctx.rank != 0:
         tr.run_train_steps(batches[:1], *sched)
-        return {"step_ms": step_ms}
+        return out
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tr.run_train_steps(batches[:1], *sched)
         torch.cuda.synchronize()
-    return {"step_ms": step_ms, "collectives": collective_ms(prof, 1)}
+    return {**out, "collectives": collective_ms(prof, 1)}
 
 
 def phase_dp_nccl():
@@ -945,12 +996,65 @@ def phase_dp_nccl():
           "scaling": runs[N]["images_per_s"] / runs[1]["images_per_s"]})
 
 
+def phase_model_nccl():
+    """On a host with several cards: the MT_UBPL step under NCCL on one
+    card, branch parallel over 2 cards (``model=2``, 32 rows per card),
+    and on 4 cards data parallel (``data=4``) and both (``model=2,
+    data=2``), 16 + 16 rows per batch index: step time, images/s and the
+    scaling against one card.  Returns the heatmap launches of the timed
+    steps."""
+    import torch
+    from ubpl_torch.parallel import make_mesh
+    from ubpl_torch.parallel.launch import launch
+    from ubpl_torch.parallel.mesh import batch_mult
+    N = torch.cuda.device_count()
+    meshes = [((1,), ("data",)), ((2,), ("model",))]
+    if N >= 4:
+        meshes += [((4,), ("data",)), ((2, 2), ("model", "data"))]
+    runs, launches = {}, {}
+    for shape, axes in meshes:
+        mesh = make_mesh(shape, axes)
+        ranks = launch(nccl_rank, mesh, "cuda", args=(8,), timeout=900)
+        steady = max(statistics.median(r["step_ms"][1:]) for r in ranks)
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        runs[",".join(f"{a}={n}" for a, n in zip(axes, shape))] = {
+            "cards": mesh.size, "step_ms": [r["step_ms"] for r in ranks],
+            "steady_step_ms_median": steady,
+            "images_per_s": 32 * batch_mult(mesh) / steady * 1e3,
+            "collectives": ranks[0]["collectives"]}
+    one = runs["data=1"]["images_per_s"]
+    emit({"phase": "model_nccl", "cards": N, "rows_per_batch_index": 32,
+          "runs": runs, "scaling": {k: r["images_per_s"] / one
+                                    for k, r in runs.items()}})
+    return launches
+
+
 def phase_cli_mt_ubpl_mesh(counts):
     """``python -m ubpl_torch mt_ubpl --synthetic_data=True
     --mesh_shape=N`` through ``__main__.main``, spawned: N = the host's
     cards under NCCL, or on a host with one card N = 2 ranks on it under
-    gloo (NCCL takes one rank per card: the CLI's card count and backend
-    are patched for this run).  HG3, bs 32 = 16 + 16, 48 training images
+    gloo (``cli_mesh_phase``)."""
+    import torch
+    N = torch.cuda.device_count()
+    return cli_mesh_phase(counts, "cli_mt_ubpl_mesh", (max(N, 2),),
+                          ("data",))
+
+
+def phase_cli_mt_ubpl_model(counts):
+    """``python -m ubpl_torch mt_ubpl --synthetic_data=True --mesh_shape=2
+    --mesh_axes=model``: branch parallel over 2 cards under NCCL, or on a
+    host with one card 2 ranks on it under gloo (``cli_mesh_phase``)."""
+    return cli_mesh_phase(counts, "cli_mt_ubpl_model", (2,), ("model",))
+
+
+def cli_mesh_phase(counts, phase, shape, axes):
+    """``python -m ubpl_torch mt_ubpl --synthetic_data=True
+    --mesh_shape=... --mesh_axes=...`` through ``__main__.main``, spawned:
+    one rank per card under NCCL, or where the host has fewer cards than
+    the mesh, every rank on card 0 under gloo (NCCL takes one rank per
+    card: the CLI's card count and backend are patched for this run).  HG3, bs 32 = 16 + 16, 48 training images
     (one step an epoch), 2 epochs, fp32 with TF32 off, against the same run
     with ``--mesh_shape=1``, which trains in this process: the first
     epoch's losses equal (rtol 1e-5).  The second epoch's are compared, not
@@ -962,14 +1066,16 @@ def phase_cli_mt_ubpl_mesh(counts):
     import ubpl_torch.train.base_trainer as BT
     from ubpl_torch.__main__ import main
     N = torch.cuda.device_count()
-    ranks = max(N, 2)
-    backend = "nccl" if N > 1 else "gloo"
+    ranks = int(np.prod(shape))
+    backend = "nccl" if N >= ranks else "gloo"
+    mesh_argv = ["--mesh_shape=" + ",".join(map(str, shape)),
+                 "--mesh_axes=" + ",".join(axes)]
     argv = ["mt_ubpl", "--synthetic_data=True", "--model=HG3",
             "--synthetic_kps=9", "--inp_res=256", "--out_res=64",
             "--train_count=48", "--valid_count=32", "--label_ratio=0.5",
             "--train_bs=32", "--train_bs_labeled=16", "--infer_bs=32",
             "--epochs=2", "--compute_dtype=float32"]
-    trace_dir = os.path.join(BUILD, "cli_mesh_trace")
+    trace_dir = os.path.join(BUILD, f"{phase}_trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
     runs = {}
     tf32 = os.environ.get("NVIDIA_TF32_OVERRIDE")
@@ -977,12 +1083,12 @@ def phase_cli_mt_ubpl_mesh(counts):
     real = BT.local_mesh_size, BT.launch
     try:
         for name, extra in (("no_mesh", ["--mesh_shape=1"]),
-                            ("mesh", [f"--mesh_shape={ranks}",
-                                      f"--profile_dir={trace_dir}"])):
-            if name == "mesh" and N == 1:
+                            ("mesh", mesh_argv + [
+                                f"--profile_dir={trace_dir}"])):
+            if name == "mesh" and backend == "gloo":
                 BT.local_mesh_size = lambda: ranks
                 BT.launch = functools.partial(real[1], backend="gloo")
-            exp = os.path.join(BUILD, f"cli_mesh_{name}")
+            exp = os.path.join(BUILD, f"{phase}_{name}")
             shutil.rmtree(exp, ignore_errors=True)
             counts.reset()
             t0 = time.perf_counter()
@@ -1025,8 +1131,9 @@ def phase_cli_mt_ubpl_mesh(counts):
     if sum(runs["no_mesh"]["launches"].values()) == 0:
         raise AssertionError("the --mesh_shape=1 run launched no kernel in "
                              "this process")
-    emit({"phase": "cli_mt_ubpl_mesh", "cards": N, "mesh_shape": [ranks],
-          "backend": backend, "model": "HG3", "dtype": "float32",
+    emit({"phase": phase, "cards": N, "mesh_shape": list(shape),
+          "mesh_axes": list(axes), "backend": backend, "model": "HG3",
+          "dtype": "float32",
           "train_bs": 32, "epochs": 2, "steps_per_epoch": 1,
           "run_s": {k: r["run_s"] for k, r in runs.items()},
           "losses": {k: [{kk: log[kk] for kk in keys} for log in r["logs"]]
@@ -1035,6 +1142,212 @@ def phase_cli_mt_ubpl_mesh(counts):
           "rank0_traced_heatmap_kernels_epoch1": traced,
           "no_mesh_kernel_launches": runs["no_mesh"]["launches"]})
     return runs["no_mesh"]["launches"]
+
+
+BRANCH_FDC_ONLY = dict(pose_weight=0.0, ensemble_pseudo_weight=0.0,
+                       cons_weight_max=0.0, cons_weight_min=0.0)
+
+
+def rel_metric_diff(got, want):
+    """Largest relative difference between two metric dicts' values."""
+    return max(float(np.max(np.abs(np.subtract(got[k], v))
+                            / np.maximum(np.abs(v), 1e-30)))
+               for k, v in want.items())
+
+
+def branch_rank(ctx, ref_path, base):
+    """One rank of ``train_mt_ubpl_branch`` (see there)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from ubpl_torch.ops.kernels import heatmap_synth as HS
+    from ubpl_torch.parallel import collectives as PC
+    from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, weights_only=False)
+    out = {"rank": ctx.rank, "device": str(ctx.device),
+           "backend": dist.get_backend(), "seconds": {}, "fp32": {}}
+    problems = []
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        torch.cuda.synchronize()
+        out["seconds"][part] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+    # 1. fp32 step 1, whole and FDC alone, against one process's step 1
+    for key, kw in (("fp32", {}), ("fdc_only", BRANCH_FDC_ONLY)):
+        tr = MTUBPLTrainer(dp_config(**DP_FP32, **kw), device=ctx.device,
+                           mesh=ctx.mesh)
+        sched = tuple(tr.epoch_schedules(1).values())
+        batch = list(tr.make_sampler())[0]
+        if batch.tolist() != ref[key]["batch"]:
+            raise AssertionError("the ranks sample another batch")
+        got = {k: v.tolist() for k, v in
+               tr.run_train_steps([batch], *sched)[0].items()}
+        worst, top = step_differences(tr, ref[key])
+        out["fp32"][key] = {
+            "networks": list(tr.networks), "metrics": got,
+            "metric_rel_diff": rel_metric_diff(got, ref[key]["metrics"]),
+            "max_abs_diff": worst, "grad_diff_top": top}
+        lap(f"{key}_setup_and_step")
+        if key == "fp32":       # 2. validation on one process's weights
+            for name, net in tr.networks.items():
+                net.load_state_dict(ref[key]["states"][name])
+            preds, accs, errs = tr.validate()
+            lap("validation")
+            if (accs, errs) != (ref[key]["valid"][1], ref[key]["valid"][2]):
+                problems.append(f"validation counters {accs} {errs} != one "
+                                f"process's {ref[key]['valid'][1:]}")
+            out["fp32"]["valid_pred_max_abs_diff"] = float(np.abs(
+                np.asarray(preds) - np.asarray(ref[key]["valid"][0])).max())
+        del tr
+        torch.cuda.empty_cache()
+    # 3. float64, handed one process's views: each rank's students back
+    _, got64, nets = float64_step(ctx.device, ctx.mesh, torch.load(
+        ref["views64"], weights_only=False))
+    torch.save({"metrics": got64, "nets": nets},
+               ref["ranks64"].format(rank=ctx.rank))
+    del nets
+    torch.cuda.empty_cache()
+    lap("float64_step")
+    # 4. bf16: 8 timed steps, then a profile of 2 (rank 0's)
+    tr = MTUBPLTrainer(dp_config(), device=ctx.device, mesh=ctx.mesh)
+    sched = tuple(tr.epoch_schedules(1).values())
+    batches = list(tr.make_sampler())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    HS.launches = 0
+    step_ms, metrics = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.run_train_steps([b], *sched)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: v.tolist() for k, v in m.items()})
+    launches = HS.launches
+    lap("bf16_setup_and_8_steps")
+    if launches != 2 * len(batches):
+        raise AssertionError(f"heatmap kernel launched {launches} times in "
+                             f"{len(batches)} steps on rank {ctx.rank}")
+    for m in metrics:
+        assert_finite("branch-parallel metric", *m.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    window = list(tr.make_sampler())[:2]
+    if ctx.rank == 0:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tr.run_train_steps(window, *sched)
+            torch.cuda.synchronize()
+        exchanges = collective_ms(prof, len(window))
+    else:
+        tr.run_train_steps(window, *sched)
+        exchanges = None
+    lap("profile_2_steps")
+    steady = statistics.median(step_ms[1:])
+    out["bf16"] = {"step_ms": step_ms, "steady_step_ms_median": steady,
+                   "images_per_s": tr.cfg.train_bs / steady * 1e3,
+                   "peak_memory_gb": peak_gb, "launches": launches,
+                   "networks": list(tr.networks), "last": metrics[-1],
+                   "exchanges": exchanges}
+    # 5. one checkpoint: every rank gathers, rank 0 writes
+    tr.save(base, 0, True)
+    PC.barrier(tr.world)
+    lap("checkpoint")
+    out["launches"] = {HS.NAME: launches}
+    out["problems"] = problems
+    return out
+
+
+def phase_train_mt_ubpl_branch(counts):
+    """Branch-parallel MT_UBPL through ``parallel.launch``: a ``("model",)``
+    mesh of 2, two ranks on card 0 under gloo, train_mt_ubpl's shape (HG3,
+    K=9, bf16, bs 32 = 16 + 16): each rank holds one (student, EMA
+    teacher) branch and the whole batch, and the step exchanges the
+    teachers' last stacks, the students' features and the metrics.
+
+    In fp32 with TF32 off, the ranks' step 1 is held to one process's on
+    the same seed and batch: losses and counts, and each branch's
+    gradients (median per-tensor difference), whole and in a step with
+    FDC alone (PEC, MTC and EPC weighted 0: FDC's gradient reaches each
+    student through the exchange, and counted once too often it is 100%
+    off); their validation, on that process's post-step weights, to its
+    counters.  Then the float64 step handed one process's views: losses,
+    gradients within 1e-9, weights within 1e-9 of their size + 2.5e-8.
+    Then 8 bf16 steps (2 heatmap launches per step per rank) with the
+    ranks' step time, images/s, peak memory and, from a profile of 2
+    steps (rank 0's host activity), the exchanges' time; and one
+    checkpoint, written once in one process's layout, that
+    ``PoseEstimator.from_checkpoint`` serves."""
+    import torch
+    from ubpl_torch.parallel import make_mesh
+    from ubpl_torch.parallel.launch import launch
+    ref = {"fp32": fp32_reference(),
+           "fdc_only": fp32_reference(validate=False, **BRANCH_FDC_ONLY)}
+    views64, metrics64, nets64 = float64_step("cuda")
+    ref["views64"] = os.path.join(BUILD, "branch_views64.pt")
+    ref["ranks64"] = os.path.join(BUILD, "branch_rank{rank}_64.pt")
+    torch.save(views64, ref["views64"])
+    del views64
+    torch.cuda.empty_cache()
+    ref_path = os.path.join(BUILD, "branch_reference.pt")
+    torch.save(ref, ref_path)
+    base = os.path.join(BUILD, "smoke_mt_ubpl_branch")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = launch(branch_rank, make_mesh((2,), ("model",)), "cuda",
+                   backend="gloo", args=(ref_path, base), timeout=900)
+    run_s = time.perf_counter() - t0
+    problems = [p for r in ranks for p in r["problems"]]
+    paths64 = [ref["ranks64"].format(rank=r) for r in range(2)]
+    got64 = [torch.load(p, weights_only=False) for p in paths64]
+    f64 = float64_differences(
+        {"metrics": metrics64, "nets": nets64},
+        {"metrics": got64[0]["metrics"],
+         "nets": {**got64[0]["nets"], **got64[1]["nets"]}})
+    for path in [ref["views64"], ref_path] + paths64:
+        os.remove(path)
+    if not (f64["loss_rel"] <= 1e-9 and f64["grad_rel"] <= 1e-9
+            and f64["weight_excess"] <= 2.5e-8):
+        problems.append(f"float64 step differs from one process's: {f64}")
+    if got64[0]["metrics"] != got64[1]["metrics"]:
+        problems.append("the ranks return different float64 metrics")
+    # fp32: every rank computes its branch on the whole batch as one
+    # process does (the same cuDNN algorithms), and FDC's gradient is the
+    # sum of two equal halves: the bounds are rounding's
+    for r in ranks:
+        for key in ("fp32", "fdc_only"):
+            d = r["fp32"][key]
+            if not (d["metric_rel_diff"] <= BRANCH_FP32_RTOL
+                    and d["max_abs_diff"]["grad_rel_median"]
+                    <= BRANCH_FP32_GRAD_MEDIAN):
+                problems.append(f"rank {r['rank']}'s fp32 {key} step "
+                                f"differs from one process's: "
+                                f"{d['metric_rel_diff']} {d['max_abs_diff']}")
+    if [r["bf16"]["networks"] for r in ranks] != [
+            ["model1_state", "model1_ema_state"],
+            ["model2_state", "model2_ema_state"]]:
+        problems.append("branch i is not on model index i")
+    files = serve_world_checkpoint(base)
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in ranks[0]["launches"]}
+    cfg = dp_config()
+    emit({"phase": "train_mt_ubpl_branch", "problems": problems,
+          "regime": "MT_UBPL", "mesh": {"model": 2}, "ranks": 2,
+          "backend": ranks[0]["backend"],
+          "devices": [r["device"] for r in ranks], "model": cfg.model,
+          "train_bs": cfg.train_bs, "train_bs_labeled": cfg.train_bs_labeled,
+          "run_s": run_s, "rank_seconds": [r["seconds"] for r in ranks],
+          "fp32_one_process": {k: ref[k]["metrics"]
+                               for k in ("fp32", "fdc_only")},
+          "fp32": [r["fp32"] for r in ranks],
+          "float64_vs_one_process": f64,
+          "bf16": [r["bf16"] for r in ranks],
+          "checkpoint_files": files, "served_images": 8,
+          "kernel_launches": launches, "kernel_launches_per_step_per_rank": 2})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
 
 
 def phase_train_mt_ubpl_mld(counts):
@@ -2008,6 +2321,12 @@ def main(argv=None):
         paths.append(phase_cli_mt_ubpl_mesh(counts))
     if want("dp_nccl") and torch.cuda.device_count() >= 2:
         phase_dp_nccl()
+    if want("train_mt_ubpl_branch"):
+        paths.append(phase_train_mt_ubpl_branch(counts))
+    if want("cli_mt_ubpl_model"):
+        paths.append(phase_cli_mt_ubpl_model(counts))
+    if want("model_nccl") and torch.cuda.device_count() >= 2:
+        paths.append(phase_model_nccl())
     if only is None:
         try:
             paths.append(phase_train_classification(counts))

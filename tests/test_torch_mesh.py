@@ -6,10 +6,13 @@ None or not, shape, axis names, ``batch_axes``, ``batch_mult``, the auto
 mesh's warning, and each rank's ``batch_rows`` against the rows that the
 device at the same place in JAX's mesh holds of an array laid out with
 ``batch_spec`` (``NamedSharding.devices_indices_map``, no program is
-compiled).  A mesh that needs more devices than there are raises in both;
-a ``model`` axis larger than 1 is built by JAX and refused by the port
-(ROADMAP A.6b).
+compiled).  A mesh that needs more devices than there are raises in both.
+On meshes with a ``model`` axis the port's rank coordinates, batch groups
+and branch groups are the JAX mesh's (``test_model_axis_matches_jax``), and
+a ``model`` axis that does not divide the two branches raises JAX's
+``ValueError``.
 """
+from types import SimpleNamespace
 import warnings
 
 import jax
@@ -59,6 +62,8 @@ MODEL_AXIS = [
     (8, {"mesh_shape": (2, 4), "mesh_axes": ("model", "data")}),
     (8, {"mesh_shape": (2,), "mesh_axes": ("model",)}),
     (8, {"mesh_shape": (2, 2, 2), "mesh_axes": ("dcn", "model", "data")}),
+    (8, {"mesh_shape": (4, 2), "mesh_axes": ("data", "model")}),
+    (8, {"mesh_shape": (4,), "mesh_axes": ("model",)}),
 ]
 
 
@@ -96,6 +101,12 @@ def test_build_mesh_matches_jax(n, kw):
     assert tmesh.size == jmesh.devices.size
     assert TM.batch_axes(tmesh) == JM.batch_axes(jmesh)
     assert TM.batch_mult(tmesh) == JM.batch_mult(jmesh)
+    _assert_rows_match(jmesh, tmesh)
+
+
+def _assert_rows_match(jmesh, tmesh):
+    """Each rank's ``batch_rows`` are the rows that the device at its place
+    in JAX's mesh holds of an array laid out with ``batch_spec``."""
     held = NamedSharding(jmesh, JM.batch_spec(jmesh, 1)).devices_indices_map(
         (ROWS,))
     for rank, device in enumerate(jmesh.devices.flat):
@@ -116,14 +127,56 @@ def test_build_mesh_too_few_devices_raises(n, kw):
     assert str(ours.value) == str(theirs.value)
 
 
+def _jax_groups(jmesh, rank_of, keep):
+    """For each device of ``jmesh`` (in rank order), the ranks of the
+    devices that share its coordinates on the axes ``keep`` names."""
+    names = jmesh.axis_names
+    at = {rank_of[d]: c for c, d in np.ndenumerate(jmesh.devices)}
+    return [sorted(r for r, c in at.items()
+                   if all(c[i] == at[rank][i] for i, a in enumerate(names)
+                          if keep(a)))
+            for rank in range(len(at))]
+
+
 @pytest.mark.parametrize("n,kw", MODEL_AXIS, ids=_ids(MODEL_AXIS))
-def test_model_axis_refused_naming_the_roadmap(n, kw):
-    """JAX shards its branch axis over ``model``; the port refuses until
-    branch parallelism is ported."""
-    jcfg, tcfg = _cfgs(kw)
-    assert JP.build_mesh(jcfg, jax.devices()[:n]).shape["model"] > 1
-    with pytest.raises(ValueError, match="ROADMAP A.6b"):
-        TP.build_mesh(tcfg, n)
+def test_model_axis_matches_jax(n, kw):
+    """JAX shards its branch axis over ``model``: the port's mesh has the
+    same axis sizes, each rank the coordinates of the device at its place
+    in JAX's mesh, its batch group the devices with its ``model`` index
+    and its branch group those with its batch coordinates."""
+    (jmesh, _), (tmesh, _) = _build(n, kw)
+    assert tmesh.shape == dict(jmesh.shape) and tmesh.shape["model"] > 1
+    rank_of = {d: r for r, d in enumerate(jmesh.devices.flat)}
+    for c, d in np.ndenumerate(jmesh.devices):
+        assert tuple(tmesh.coords(rank_of[d]).values()) == c
+    batch = _jax_groups(jmesh, rank_of, lambda a: a not in JM.BATCH_AXES)
+    branch = _jax_groups(jmesh, rank_of, lambda a: a in JM.BATCH_AXES)
+    for rank in range(tmesh.size):
+        assert tmesh.batch_group(rank) == batch[rank]
+        assert tmesh.branch_group(rank) == branch[rank]
+    _assert_rows_match(jmesh, tmesh)
+
+
+@pytest.mark.parametrize("n,kw", MODEL_AXIS, ids=_ids(MODEL_AXIS))
+def test_branch_split_matches_jax(n, kw):
+    """Two branches over ``model``: each model index holds
+    ``n_branch / model`` of them, or both raise JAX's ``ValueError``
+    (``make_branch_forward``, reached here without building a step)."""
+    import ubpl_tpu.train.base_trainer as JB
+    (jmesh, _), (tmesh, _) = _build(n, kw)
+    fake = SimpleNamespace(mesh=jmesh, cfg=SimpleNamespace(remat=False),
+                           n_models=2)
+    if 2 % jmesh.shape["model"]:
+        with pytest.raises(ValueError) as theirs:
+            JB.BaseTrainer.make_branch_forward(fake, None, None)
+        with pytest.raises(ValueError) as ours:
+            TM.local_branches(tmesh, 0, 2)
+        assert str(ours.value) == str(theirs.value)
+        return
+    JB.BaseTrainer.make_branch_forward(fake, None, None)
+    for rank in range(tmesh.size):
+        m = tmesh.coords(rank)["model"]
+        assert TM.local_branches(tmesh, rank, 2) == range(m, m + 1)
 
 
 @pytest.mark.parametrize("value,cast", [("2,4", int), ("model, data", str),
@@ -140,6 +193,7 @@ def test_mesh_layout_is_row_major():
     assert [tuple(mesh.coords(r).values()) for r in range(6)] == [
         tuple(int(i) for i in c) for c in np.ndindex(2, 3)]
     assert mesh.batch_group(4) == list(range(6))
+    assert mesh.branch_group(4) == [4]
     assert [TM.batch_rows(mesh, r, 12).start for r in range(6)] == [
         0, 2, 4, 6, 8, 10]
 
@@ -152,6 +206,13 @@ def test_batch_rows_refuses_a_ragged_split():
 def test_no_mesh_holds_every_row():
     assert TM.batch_rows(None, 0, 7) == range(7)
     assert TM.batch_mult(None) == 1 and TM.batch_axes(None) == ()
+    assert TM.local_branches(None, 0, 2) == range(2)
+
+
+def test_other_axes_are_refused():
+    """Axes other than dcn, data and model split nothing in the port."""
+    with pytest.raises(ValueError, match="'stage' of size 2"):
+        TM.make_mesh((2, 2), ("stage", "data"))
 
 
 def test_make_mesh_defaults_to_the_local_cards():

@@ -120,9 +120,9 @@ def steps():
     seen = []
     real = M.mld_combine
 
-    def spy(pri, sec, alpha):
+    def spy(pri, sec, alpha, **kw):
         seen.append(([p.clone() for p in pri], [s.clone() for s in sec], alpha))
-        return real(pri, sec, alpha)
+        return real(pri, sec, alpha, **kw)
 
     M.mld_combine = spy
     try:

@@ -1,5 +1,6 @@
-"""The ranks' side of ``tests/test_torch_dp.py``: functions that run inside
-the processes of a gloo world on the CPU (``ubpl_torch.parallel.launch``).
+"""The ranks' side of ``tests/test_torch_dp.py`` and
+``tests/test_torch_branch.py``: functions that run inside the processes of
+a gloo world on the CPU (``ubpl_torch.parallel.launch``).
 
 Each scenario builds the trainer twice in the rank: once on one process
 (no mesh: the single-process path, no collective) and once on the world's
@@ -102,11 +103,14 @@ def _batches(tr, regime):
 
 
 def held_by_every_rank(tensors, group):
-    """True on every rank when each tensor equals rank 0's."""
+    """True on every rank of ``group`` when each tensor equals the group's
+    first rank's (True without a group)."""
+    if group is None:
+        return True
     same = True
     for t in tensors:
         ref = t.detach().clone()
-        dist.broadcast(ref, 0)
+        dist.broadcast(ref, group.ranks[0], group=group.pg)
         same &= bool(torch.equal(ref, t.detach()))
     return not PC.any_true(not same, group)
 
@@ -140,24 +144,29 @@ def _numpy(metrics):
     return {k: v.detach().numpy().copy() for k, v in metrics.items()}
 
 
-def step(ctx, regime, steps=1, **kw):
+def step(ctx, regime, steps=1, sched=None, **kw):
     """``steps`` training steps of ``regime`` on one process and on the
-    world, from the same weights on the same batches."""
+    world, from the same weights on the same batches (``sched``: the
+    schedule's scalars, else the regime's ``SSL_SCHED``).  The world's
+    networks are held to one process's of the same name; the ranks that
+    should hold the same networks (those of a branch's batch group, or
+    the whole world where the branches are not split) to one another."""
+    sched = _sched(regime) if sched is None else sched
     one, dp = make(regime, **kw), make(regime, ctx.mesh, **kw)
     batches = _batches(one, regime)[:steps]
     assert [b.tolist() for b in _batches(dp, regime)[:steps]] == \
         [b.tolist() for b in batches]
-    m_one = [_numpy(m) for m in one.run_train_steps(batches,
-                                                    *_sched(regime))]
-    m_dp = [_numpy(m) for m in dp.run_train_steps(batches, *_sched(regime))]
+    m_one = [_numpy(m) for m in one.run_train_steps(batches, *sched)]
+    m_dp = [_numpy(m) for m in dp.run_train_steps(batches, *sched)]
     nets = list(dp.networks.values())
     return {"batch": batches[0].tolist(), "one": m_one, "dp": m_dp,
             "islabeled_rows": dp.fetch_batch(dp.train_data, batches[0])[2]
             .tolist() if dp.train_data is not None else None,
-            **compare_nets(list(one.networks.values()), nets),
+            "networks": list(dp.networks),
+            **compare_nets([one.networks[k] for k in dp.networks], nets),
             "ranks_equal": held_by_every_rank(
                 [t for n in nets for t in n.state_dict().values()],
-                dp.group)}
+                dp.group if dp.branches else dp.world)}
 
 
 def batchnorm(ctx):
@@ -350,9 +359,7 @@ def supervised_on_views(ctx, state, views, lr):
     model = load_state(create_pose_model("HG1", K), state).double()
     set_batch_group(model, group)
     opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=0.0)
-    n = views["images"].shape[0]
-    rows = slice(PC.shard(group) * n // PC.size(group),
-                 (PC.shard(group) + 1) * n // PC.size(group))
+    rows = batch_rows_of(group, views["images"].shape[0])
     view = C.ViewBatch(*(None if views.get(f) is None else
                          torch.as_tensor(views[f][rows])
                          for f in C.ViewBatch._fields))
@@ -361,6 +368,122 @@ def supervised_on_views(ctx, state, views, lr):
             "params": ({k: v.detach().numpy().copy()
                         for k, v in model.state_dict().items()}
                        if ctx.rank == 0 else None)}
+
+
+def _state_excess(a, b):
+    """Largest difference of two state dicts' tensors beyond 1e-9 of the
+    first's largest magnitude, and whether their keys (in order) agree."""
+    worst = 0.0
+    for name, t in a.items():
+        u = b[name]
+        worst = max(worst, float((t.double() - u.double()).abs().max()
+                                 - 1e-9 * t.double().abs().max()))
+    return worst, list(a) == list(b)
+
+
+def _optim_excess(a, b):
+    """``_state_excess`` of two AdamW state dicts: their entries' indices
+    and tensors, and their param groups."""
+    worst, same = 0.0, list(a["state"]) == list(b["state"]) and \
+        a["param_groups"] == b["param_groups"]
+    for i, entry in a["state"].items():
+        w, same_keys = _state_excess(entry, b["state"][i])
+        worst, same = max(worst, w), same and same_keys
+    return worst, same
+
+
+def branch_checkpoint(ctx, base_dir):
+    """Checkpoints across the ``model`` axis, both ways.  One epoch of
+    ``run`` (one step, validation, a pseudo round, the checkpoint) over the
+    world and on one process: the world's file against one process's
+    state, key for key (networks and AdamW state).  Then the world's file
+    resumed on one process, and one process's file resumed in the world:
+    the next step of each (same batch, same augmentation draws) against
+    that of one process resumed from its own file (a resume rounds
+    float64 weights to float32: ``port_state_from_reference``).  Every
+    rank runs the single-process trainers too; the run directories are
+    removed at the end."""
+    import shutil
+    kw = dict(epochs=1, pseudo_rounds=1, pseudo_interval=1, train_count=5)
+    world_dir, one_dir = (os.path.join(base_dir, d) for d in ("w", "o"))
+    dp = make("mt_ubpl", ctx.mesh, **kw)
+    dp.run(world_dir)
+    one = make("mt_ubpl", **kw)
+    one.run()
+    one.save(one_dir, 0, False)         # rank 0 writes
+    PC.barrier(dp.world)
+    files = sorted(os.listdir(os.path.join(world_dir, "ckpts")))
+    s_one, (s_file, meta) = one.checkpoint_state(), restore_checkpoint(
+        world_dir)
+    out = {"files": files, "keys": (list(s_one), list(s_file)),
+           "meta_rounds": int(meta["pseudo_rounds_done"]),
+           "net_worst": 0.0, "net_keys": True}
+    for key in s_one:
+        if key != "optim_state":
+            w, same = _state_excess(s_one[key], s_file[key])
+            out["net_worst"] = max(out["net_worst"], w)
+            out["net_keys"] &= same
+    out["optim_worst"], out["optim_layout"] = _optim_excess(
+        s_one["optim_state"], s_file["optim_state"])
+    resumed = {"one": (make("mt_ubpl", **kw), one_dir),
+               "file_on_one": (make("mt_ubpl", **kw), world_dir),
+               "one_file_in_world": (make("mt_ubpl", ctx.mesh, **kw),
+                                     one_dir)}
+    out["resume_epochs"] = [tr.resume(path) for tr, path in resumed.values()]
+    batch = list(one.make_sampler())[:1]
+    out["steps"] = {}
+    for name, (tr, _) in resumed.items():
+        tr.generator.manual_seed(17)
+        out["steps"][name] = _numpy(tr.run_train_steps(batch, *SSL_SCHED)[0])
+    base = resumed["one"][0].networks
+    for name in ("file_on_one", "one_file_in_world"):
+        nets = resumed[name][0].networks
+        out[name] = compare_nets([base[k] for k in nets], list(nets.values()))
+    PC.barrier(dp.world)
+    if ctx.rank == 0:
+        shutil.rmtree(base_dir)
+    return out
+
+
+def mt_ubpl_on_views(ctx, students, teachers, views, islabeled, sched):
+    """The MT_UBPL step of the world's branches on given views and states
+    (``students``/``teachers``: one state dict per branch, numpy;
+    ``views``: NCHW numpy ViewBatch fields of the whole batch, every rank
+    holding it whole), with an AdamW over each rank's student.  Returns the
+    step's metrics and this rank's networks after it."""
+    from ubpl_torch.models import create_pose_model
+    from ubpl_torch.models.layers import set_batch_group
+    from ubpl_torch.models.weights import load_state
+    group = PC.batch_group(ctx.mesh, ctx.device)
+    branches = PC.branch_group(ctx.mesh, ctx.device, 2)
+    cfg = Config(**{**KW, "model": "HG1"})
+    cfg.kps_count = K
+
+    def net(sd):
+        model = load_state(create_pose_model("HG1", K), {
+            k: torch.as_tensor(v) for k, v in sd.items()}).double()
+        return set_batch_group(model, group)
+    s = [net(students[b]) for b in branches.local]
+    t = [net(teachers[b]).requires_grad_(False) for b in branches.local]
+    opt = torch.optim.AdamW([p for m in s for p in m.parameters()],
+                            lr=cfg.lr, weight_decay=cfg.wd)
+    rows = batch_rows_of(group, views[0]["images"].shape[0])
+    view = [C.ViewBatch(*(None if v.get(f) is None else
+                          torch.as_tensor(v[f][rows])
+                          for f in C.ViewBatch._fields)) for v in views]
+    m = MT.mt_ubpl_step(s, t, opt, view, torch.as_tensor(islabeled[rows]),
+                        *sched, cfg, group, branches)
+    return {"metrics": _numpy(m), "branches": list(branches.local),
+            "students": [{k: v.numpy().copy() for k, v in
+                          x.state_dict().items()} for x in s],
+            "teachers": [{k: v.numpy().copy() for k, v in
+                          x.state_dict().items()} for x in t]}
+
+
+def batch_rows_of(group, n):
+    """The rows of an ``n``-row batch that this rank holds."""
+    d = PC.size(group)
+    return slice(PC.shard(group) * n // d, (PC.shard(group) + 1) * n // d)
 
 
 def world(ctx, scenarios):

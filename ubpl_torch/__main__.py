@@ -10,19 +10,27 @@ classification | preview
 `--device=cuda|cpu` picks the device; without it the port runs on the CUDA
 card and stops if there is none.
 
-Several cards (data parallel: the batch and the dataset split over the
-cards, BatchNorm statistics, losses and gradients over the global batch):
-every card of the host by default (the count shrunk to one that divides
---train_bs), or `--mesh_shape=N` (`--mesh_axes=data`; N=1: one card, in
-this process); one process per card, started here:
+Several cards, one process per card, started here or by torchrun.  Data
+parallel (the batch and the dataset split over the cards, BatchNorm
+statistics, losses and gradients over the global batch): every card of the
+host by default (the count shrunk to one that divides --train_bs), or
+`--mesh_shape=N` (`--mesh_axes=data`; N=1: one card, in this process):
     python -m ubpl_torch mt_ubpl --mesh_shape=4 ...
-or by torchrun, on one node or several (`dcn`: one index per node):
     torchrun --nproc-per-node=4 -m ubpl_torch mt_ubpl ...
     torchrun --nnodes=2 --nproc-per-node=4 --rdzv-endpoint=HOST:PORT \\
         -m ubpl_torch mt_ubpl --mesh_shape=2,4 --mesh_axes=dcn,data ...
-A `model` axis larger than 1 (branch parallelism) is refused: it is not
-ported yet (ROADMAP A.6b).  With --device=cpu, `--mesh_shape=N` runs N
-gloo processes on the CPU; without it, one.
+(`dcn`: one index per node).  Branch parallel (a `model` axis: the
+two-network regimes mt_ubpl, dualpose and dualpose_ubpl put each (student,
+EMA teacher) pair on its own card and exchange only the teachers' last
+stacks, the students' features and a few scalars):
+    python -m ubpl_torch mt_ubpl --mesh_shape=2 --mesh_axes=model ...
+    python -m ubpl_torch mt_ubpl --mesh_shape=2,4 --mesh_axes=model,data ...
+    torchrun --nproc-per-node=4 -m ubpl_torch mt_ubpl --mesh_shape=2,2 \\
+        --mesh_axes=model,data ...
+A `model` axis must divide the two branches (4 raises).  supervised and mt
+have no branch axis: they run whole on every `model` index.  classification
+takes no mesh.  With --device=cpu, `--mesh_shape=...` runs that many gloo
+processes on the CPU; without it, one.
 
 Other keys map to
 ubpl_torch.config.Config fields (or reference argparse aliases), e.g.:

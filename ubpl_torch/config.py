@@ -10,7 +10,8 @@ Fields that steer only the XLA/TPU lowering (``unroll_branches``,
 unchanged (the trainers still refuse ``stream_data`` with
 ``scan_batches > 1``, as the JAX package does).  ``mesh_shape`` and
 ``mesh_axes`` lay the run out over several cards
-(``parallel/mesh.py:build_mesh``, one process per card).  ``io_workers``
+(``parallel/mesh.py:build_mesh``, one process per card: the batch over
+``dcn``/``data``, the branches over ``model``).  ``io_workers``
 sets the host decode threads of ``data.arrays``.
 """
 import dataclasses

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.collectives import all_gather_stacked, all_reduce_sum
+from ..parallel.collectives import (BatchGroup, all_gather_stacked,
+                                    all_reduce_sum)
 
 # std of N(0, 1) truncated to [-2, 2] (flax variance_scaling's correction)
 _TRUNC_STD = 0.87962566103423978
@@ -155,7 +156,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 def set_batch_group(model, group):
     """Point every ``BatchNorm`` of ``model`` at ``group`` (None: the
-    single-process statistics)."""
+    single-process statistics).  Only a ``BatchGroup`` (the ranks that
+    split one network's batch) will do: statistics pooled over a branch
+    group or the world would mix two networks' activations."""
+    if group is not None and not isinstance(group, BatchGroup):
+        raise TypeError(f"BatchNorm statistics over a {type(group).__name__}"
+                        "; they need the batch group")
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.group = group

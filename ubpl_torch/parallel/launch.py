@@ -10,12 +10,15 @@ results in rank order:
     process joins the world torchrun made (``env://``) and runs its own
     rank only; the list holds that one result;
   * otherwise it spawns ``mesh.size`` processes (``multiprocessing``'s
-    spawn method) that meet at a free ``localhost`` port.
+    spawn method) that meet at a file of their own (``file://`` in a fresh
+    temporary directory): no port to pick, so two launches at once on one
+    host cannot meet at the same address.
 
 Each rank's device is ``cuda:{local_rank}`` (set as the current device
 before the process group starts) or ``cpu``, where each rank computes with
-its share of the host's cores (several processes with a thread per core
-each slow one another down many times over).  The backend is NCCL on CUDA
+its share of the launching process's torch threads (under torchrun, of the
+host's cores): several processes with a thread per core each slow one
+another down many times over.  The backend is NCCL on CUDA
 and gloo on the CPU; ``backend="gloo"`` on CUDA puts several ranks on one
 card (``cuda:{local_rank % device_count}``), which NCCL refuses — the smoke
 run uses it to run two ranks on its one card.
@@ -27,7 +30,8 @@ bounds the whole launch and each collective, so a hang fails too.
 import datetime
 import os
 import queue
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from typing import NamedTuple
@@ -43,15 +47,9 @@ class RankContext(NamedTuple):
     device: torch.device
 
 
-def _free_port():
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_device(device_type, local_rank, local_world, backend):
+def _rank_device(device_type, local_rank, threads, backend):
     if device_type != "cuda":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+        torch.set_num_threads(threads)
         return torch.device("cpu")
     n = torch.cuda.device_count()
     if local_rank >= n and backend == "nccl":
@@ -62,10 +60,10 @@ def _rank_device(device_type, local_rank, local_world, backend):
     return device
 
 
-def _init(rank, world, local_rank, local_world, mesh, device_type, backend,
+def _init(rank, world, local_rank, threads, mesh, device_type, backend,
           init_method, timeout):
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
-    device = _rank_device(device_type, local_rank, local_world, backend)
+    device = _rank_device(device_type, local_rank, threads, backend)
     kw = {} if timeout is None else {
         "timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
@@ -73,11 +71,11 @@ def _init(rank, world, local_rank, local_world, mesh, device_type, backend,
     return RankContext(mesh, rank, local_rank, device)
 
 
-def _worker(rank, world, mesh, device_type, backend, init_method, timeout,
-            fn, args, results):
+def _worker(rank, world, threads, mesh, device_type, backend, init_method,
+            timeout, fn, args, results):
     """One spawned rank: run ``fn`` and report its result or traceback."""
     try:
-        ctx = _init(rank, world, rank, world, mesh, device_type, backend,
+        ctx = _init(rank, world, rank, threads, mesh, device_type, backend,
                     init_method, timeout)
         out = fn(ctx, *args)
     except BaseException:       # reported to the parent, then re-raised
@@ -106,9 +104,10 @@ def launch(fn, mesh, device_type, backend=None, args=(), timeout=None):
         if world != mesh.size:
             raise ValueError(f"mesh {mesh.shape} has {mesh.size} devices, "
                              f"torchrun started {world} processes")
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         ctx = _init(int(os.environ["RANK"]), world,
                     int(os.environ.get("LOCAL_RANK", 0)),
-                    int(os.environ.get("LOCAL_WORLD_SIZE", world)), mesh,
+                    max(1, (os.cpu_count() or 1) // local_world), mesh,
                     device_type, backend, "env://", timeout)
         try:
             return [fn(ctx, *args)]
@@ -116,10 +115,12 @@ def launch(fn, mesh, device_type, backend=None, args=(), timeout=None):
             dist.destroy_process_group()
     mp = torch.multiprocessing.get_context("spawn")
     results = mp.Queue()
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    meet = tempfile.mkdtemp(prefix="ubpl_launch_")
+    init_method = "file://" + os.path.join(meet, "store")
+    threads = max(1, torch.get_num_threads() // mesh.size)
     procs = [mp.Process(target=_worker, daemon=True, args=(
-        r, mesh.size, mesh, device_type, backend, init_method, timeout, fn,
-        args, results)) for r in range(mesh.size)]
+        r, mesh.size, threads, mesh, device_type, backend, init_method,
+        timeout, fn, args, results)) for r in range(mesh.size)]
     for p in procs:
         p.start()
     try:
@@ -129,6 +130,7 @@ def launch(fn, mesh, device_type, backend=None, args=(), timeout=None):
             if p.is_alive():
                 p.kill()
             p.join()
+        shutil.rmtree(meet, ignore_errors=True)
 
 
 def _collect(procs, results, timeout):

@@ -17,9 +17,18 @@ is the outermost.
     beyond that rank order: ``torchrun`` numbers the ranks node by node, so
     a ``("dcn", "data")`` mesh with one ``dcn`` index per node keeps the
     ``"data"`` axis inside a node.
-  * ``"model"``: the branch axis.  Branch parallelism is not ported yet
-    (ROADMAP A.6b), so a mesh whose non-batch axes hold more than one
-    device raises.
+  * ``"model"``: the branch axis of the two-network regimes (MT_UBPL,
+    DualPose(_UBPL)).  Model index ``i`` holds branches ``i * n_branch /
+    model`` to ``(i + 1) * n_branch / model - 1`` (``local_branches``),
+    each on the whole of its batch slice, as ``make_branch_forward``'s
+    ``shard_map`` over ``"model"`` runs them (``ubpl_tpu/train/
+    base_trainer.py:232-379``).  A regime without a branch axis runs whole
+    on every model index, as the JAX package's replicated state does.
+
+A rank belongs to two groups: its batch group (``Mesh.batch_group``: the
+ranks with its ``model`` index, which split each batch) and its branch
+group (``Mesh.branch_group``: the ranks with its batch coordinates, which
+split the branches).
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -29,6 +38,8 @@ import torch
 
 #: mesh axes a batch dimension shards over, outermost first
 BATCH_AXES = ("dcn", "data")
+#: the mesh axis the stacked branches shard over
+MODEL_AXIS = "model"
 
 
 def parse_axis_spec(value, cast=int) -> Tuple:
@@ -61,20 +72,28 @@ class Mesh:
         return dict(zip(self.axis_names,
                         (int(i) for i in np.unravel_index(rank, self.sizes))))
 
+    def _sharing(self, rank, axes) -> list:
+        mine = self.coords(rank)
+        return [r for r in range(self.size)
+                if all(self.coords(r)[a] == mine[a] for a in axes)]
+
     def batch_group(self, rank) -> list:
         """The ranks that share ``rank``'s non-batch coordinates: the
         processes among which a batch is split."""
-        mine = self.coords(rank)
-        return [r for r in range(self.size)
-                if all(self.coords(r)[a] == mine[a]
-                       for a in self.axis_names if a not in BATCH_AXES)]
+        return self._sharing(rank, [a for a in self.axis_names
+                                    if a not in BATCH_AXES])
+
+    def branch_group(self, rank) -> list:
+        """The ranks that share ``rank``'s batch coordinates: the processes
+        among which the branches are split, in ``model`` order."""
+        return self._sharing(rank, batch_axes(self))
 
 
 def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               axes: Tuple[str, ...] = ("data",), n_devices=None) -> Mesh:
     """A mesh of ``shape`` over ``axes``; ``shape=None`` puts
-    ``n_devices`` on the first axis.  Raises for a non-batch axis of more
-    than one device."""
+    ``n_devices`` on the first axis.  Raises for an axis other than
+    ``"dcn"``, ``"data"`` and ``"model"`` of more than one device."""
     if shape is None:
         n = local_mesh_size() if n_devices is None else n_devices
         shape, axes = (n,), tuple(axes)[:1]
@@ -83,11 +102,10 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
         raise ValueError(f"mesh_shape {shape} and mesh_axes {axes} differ "
                          "in length")
     for a, s in zip(axes, shape):
-        if a not in BATCH_AXES and s > 1:
+        if a not in BATCH_AXES + (MODEL_AXIS,) and s > 1:
             raise ValueError(
-                f"mesh axis {a!r} of size {s}: the port splits only the "
-                f"batch, over {BATCH_AXES}; branch parallelism over the "
-                "'model' axis is not ported yet (ROADMAP A.6b)")
+                f"mesh axis {a!r} of size {s}: the port splits the batch "
+                f"over {BATCH_AXES} and the branches over {MODEL_AXIS!r}")
     return Mesh(axes, shape)
 
 
@@ -164,6 +182,32 @@ def batch_rows(mesh: Optional[Mesh], rank, n) -> range:
                          f"{batch_axes(mesh)} (x{d})")
     lo = batch_shard(mesh, rank) * (n // d)
     return range(lo, lo + n // d)
+
+
+def model_size(mesh: Optional[Mesh]) -> int:
+    """Ways the branches split (1 without a ``model`` axis)."""
+    return 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
+
+
+def branch_shard(mesh: Optional[Mesh], rank) -> int:
+    """``rank``'s index on the ``model`` axis (0 without one)."""
+    if mesh is None or MODEL_AXIS not in mesh.axis_names:
+        return 0
+    return mesh.coords(rank)[MODEL_AXIS]
+
+
+def local_branches(mesh: Optional[Mesh], rank, n_branch) -> range:
+    """The branches of an ``n_branch`` axis that ``rank`` holds: branch
+    ``i`` lives on model index ``i // (n_branch / model)``.  Raises the JAX
+    package's ``ValueError`` when ``model`` does not divide ``n_branch``
+    (``ubpl_tpu/train/base_trainer.py:346-349``)."""
+    m_size = model_size(mesh)
+    if n_branch % m_size != 0:
+        raise ValueError(f"branch axis {n_branch} not divisible by "
+                         f"'model' mesh axis ({m_size})")
+    per = n_branch // m_size
+    lo = branch_shard(mesh, rank) * per
+    return range(lo, lo + per)
 
 
 def local_mesh_size() -> int:

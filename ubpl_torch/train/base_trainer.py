@@ -34,6 +34,18 @@ their batches over the ranks and gather the predictions in order.  Rank 0
 alone writes checkpoints, logs and reports; the ranks' losses, metrics and
 validation results are global, so every rank returns the same history.
 
+Branch parallel (a ``model`` axis; ``make_branch_forward``'s ``shard_map``
+and ``_shard_for_mesh``, ``:210-379``): a rank builds only its branches of
+the regime's ``n_models`` (``BranchGroup.local``; branch ``i`` still from
+``cfg.seed + i``, so a world equals one process) and names them in
+``self.networks`` as one process does; its AdamW covers its students.  The
+step exchanges the teachers' outputs and the students' features over the
+branch group (``train/mt_ubpl.py``), validation gathers the heads'
+coordinates, checkpoints gather every branch and its AdamW state into one
+process's layout, and ``resume`` gives each rank its own.  A regime without
+a branch axis (``n_models`` 1) runs whole on every ``model`` index.  The
+barriers and the preemption flag span the world.
+
 Random numbers: numpy's ``np.random.default_rng(cfg.seed)`` drives data
 and batch order (as in the JAX package); the augmentation draws come from a
 ``torch.Generator`` on the device seeded with ``cfg.seed``.
@@ -61,7 +73,8 @@ from ..models.weights import (export_reference_state,
 from ..ops import augment as A
 from ..parallel import collectives as PC
 from ..parallel.launch import launch, under_torchrun, world_size_from_env
-from ..parallel.mesh import batch_rows, build_mesh, local_mesh_size
+from ..parallel.mesh import (batch_rows, build_mesh, local_branches,
+                             local_mesh_size)
 from ..utils import Logger, json_save
 from ..utils.preemption import PreemptionGuard
 from ..utils.profiling import trace
@@ -108,6 +121,8 @@ class BaseTrainer:
     supports_pseudo_loop = False
     #: regimes with a primary/secondary loss split run cfg.optimizer="mld"
     supports_mld = False
+    #: the stacked branch axis that a ``model`` mesh axis splits (1: none)
+    n_models = 1
 
     def __init__(self, cfg: Config, device=None, logger=None, mesh=None):
         if cfg.optimizer not in ("adamw", "mld"):
@@ -129,11 +144,15 @@ class BaseTrainer:
                 "training set; stream_data keeps it on host — pick one")
         self.cfg = cfg
         self.device = resolve_device(device)
-        #: ``parallel.mesh.Mesh`` of a data-parallel run (one process per
-        #: device, started by ``parallel.launch``); None on one device
+        #: ``parallel.mesh.Mesh`` of a run over several devices (one
+        #: process per device, started by ``parallel.launch``); None on one
         self.mesh = mesh
+        #: the ranks that split each batch, those that split the branches,
+        #: and the world (``parallel.collectives``); None where not split
         self.group = PC.batch_group(mesh, self.device)
-        self.rank = self.group.rank if self.group else 0
+        self.branches = PC.branch_group(mesh, self.device, self.n_models)
+        self.world = PC.world_group(mesh, self.device)
+        self.rank = self.world.rank if self.world else 0
         self.logger = logger or Logger(f"{cfg.data_source}_{self.regime}")
         if not PC.is_writer():      # data parallel: rank 0 alone logs
             self.logger = Logger(self.logger.experiment, console_level=None)
@@ -304,9 +323,9 @@ class BaseTrainer:
     def _make_model(self, seed=None):
         """One network, initialised on the CPU from ``seed`` (cfg.seed by
         default), in the device's activation layout.  Data parallel, its
-        BatchNorms use the global batch's statistics, and rank 0's
-        weights are broadcast once (every rank drew the same ones: a
-        guard)."""
+        BatchNorms use the global batch's statistics, and the batch group's
+        first rank's weights are broadcast once (every rank drew the same
+        ones: a guard)."""
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed if seed is None else seed)
@@ -319,23 +338,31 @@ class BaseTrainer:
                           self.group)
         return set_batch_group(model, self.group)
 
+    def branch_ids(self, n):
+        """The branches of an ``n``-branch axis this rank holds: its
+        ``BranchGroup.local``, or all of them."""
+        return self.branches.local if self.branches else range(n)
+
     def _make_models(self, n):
-        """``n`` student branches, branch i initialised from cfg.seed + i,
-        each with an EMA teacher that starts as a copy of it: parameters
-        (frozen: the EMA moves them) and BatchNorm running stats."""
-        students = [self._make_model(self.cfg.seed + i) for i in range(n)]
+        """This rank's student branches of ``n``, branch i initialised from
+        cfg.seed + i, each with an EMA teacher that starts as a copy of it:
+        parameters (frozen: the EMA moves them) and BatchNorm running
+        stats."""
+        students = [self._make_model(self.cfg.seed + i)
+                    for i in self.branch_ids(n)]
         teachers = [copy.deepcopy(s).requires_grad_(False) for s in students]
         return students, teachers
 
     def _setup_branches(self, n):
-        """The student/teacher regimes' ``_setup_model``: n branches, one
-        AdamW over all students' parameters, and the networks named as the
-        reference checkpoints name them: ``model[_ema]_state`` for one
-        branch, ``model{i}[_ema]_state`` for several."""
+        """The student/teacher regimes' ``_setup_model``: n branches (this
+        rank's of them), one AdamW over their students' parameters, and the
+        networks named as the reference checkpoints name them:
+        ``model[_ema]_state`` for one branch, ``model{i}[_ema]_state`` for
+        several."""
         cfg = self.cfg
         self.students, self.teachers = self._make_models(n)
         self.networks = {}
-        for i, (s, t) in enumerate(zip(self.students, self.teachers)):
+        for i, s, t in zip(self.branch_ids(n), self.students, self.teachers):
             tag = "" if n == 1 else str(i + 1)
             self.networks[f"model{tag}_state"] = s
             self.networks[f"model{tag}_ema_state"] = t
@@ -405,12 +432,16 @@ class BaseTrainer:
     def _validate_heads(self, models, with_mean):
         """Validation pass of several heads over the resident validation
         set with the reference's counter weighting; one device-to-host
-        read per batch.  Data parallel, each rank predicts its share of
-        every batch and all compute the PCK of the whole batch.  Returns
-        (preds, accs, errs), one entry per head."""
+        read per batch; ``with_mean``: the mean of the heads' coordinates
+        is one more head.  Data parallel, each rank predicts its share of
+        every batch and all compute the PCK of the whole batch; branch
+        parallel, ``models`` are this rank's and their coordinates are
+        gathered over the branch group before the mean head is formed.
+        Returns (preds, accs, errs), one entry per head."""
         cfg = self.cfg
         n_heads, k = len(self.valid_heads), cfg.kps_count
-        assert n_heads == len(models) + bool(with_mean)
+        n_nets = len(models) * (self.branches.size if self.branches else 1)
+        assert n_heads == n_nets + bool(with_mean)
         acc_cs = [L.AvgCounters() for _ in range(n_heads)]
         err_cs = [L.AvgCounters() for _ in range(n_heads)]
         preds_arrays = [[] for _ in range(n_heads)]
@@ -419,9 +450,12 @@ class BaseTrainer:
                                          ("images", "kps"))
             coords = self.predict_split(
                 lambda pick: predict_heads_batch(
-                    models, imgs[pick], self.means, cfg,
-                    with_mean).transpose(0, 1),
+                    models, imgs[pick], self.means, cfg).transpose(0, 1),
                 len(idxs)).transpose(0, 1)
+            if self.branches is not None:
+                coords = self.branches.gather_branches(coords)
+            if with_mean:       # as ops/heatmap.py:decode_heatmaps_mul
+                coords = torch.cat([coords, coords.mean(dim=0)[None]])
             errs, accs = pck_heads(coords, kps, cfg)
             sizes = [coords.numel(), errs.numel(), accs.numel()]
             host = torch.cat([coords.flatten(), errs.flatten(),
@@ -456,32 +490,97 @@ class BaseTrainer:
     def checkpoint_state(self):
         """The regime's state in the reference checkpoint layout, each
         network with the keys the reference's strict load requires
-        (``export_reference_state``)."""
+        (``export_reference_state``).  Branch parallel, every rank of the
+        branch group takes part: the state is gathered into one process's
+        layout (``_gather_branches_state``)."""
         state = {k: export_reference_state(m)
                  for k, m in self.networks.items()}
-        state["optim_state"] = self.optimizer.state_dict()
+        optim = self.optimizer.state_dict()
+        if self.branches is not None:
+            return self._gather_branches_state(state, optim)
+        state["optim_state"] = optim
         return state
+
+    def _gather_branches_state(self, nets, optim):
+        """Every branch's exported networks (``nets``: this rank's) and
+        AdamW state (``optim``: over this rank's students) gathered over
+        the branch group in one collective: the networks in branch order
+        under their reference names, and ``optim_state`` laid out as one
+        AdamW over every student, parameter indices in branch order."""
+        br = self.branches
+        n_loc, per = len(br.local), len(nets) // len(br.local)
+        names = list(nets)
+        n_par = len(optim["param_groups"][0]["params"]) // n_loc
+        # every branch runs the same losses: the same parameters have state
+        present = [p for p in range(n_par) if p in optim["state"]]
+        opt_keys = list(optim["state"][present[0]]) if present else []
+        # one tensor [n_loc, ...] per network entry and per AdamW entry
+        net_items = [(k, key) for k in range(per) for key in nets[names[k]]]
+        opt_items = [(p, key) for p in present for key in opt_keys]
+        local = ([torch.stack([nets[names[j * per + k]][key]
+                               for j in range(n_loc)])
+                  for k, key in net_items]
+                 + [torch.stack([optim["state"][j * n_par + p][key]
+                                 for j in range(n_loc)])
+                    for p, key in opt_items])
+        every = [t.flatten(0, 1) for t in br.gather_many(local)]
+        state = {}
+        for b in range(br.n_branch):
+            for k in range(per):
+                ema = _NETWORK_KEY.fullmatch(names[k]).group(2) or ""
+                state[f"model{b + 1}{ema}_state"] = {
+                    key: t[b].to(nets[names[k]][key].device)
+                    for (kk, key), t in zip(net_items, every) if kk == k}
+        opt_every = every[len(net_items):]
+        state["optim_state"] = {
+            "state": {b * n_par + p: {
+                key: t[b].to(optim["state"][p][key].device)
+                for (pp, key), t in zip(opt_items, opt_every) if pp == p}
+                for b in range(br.n_branch) for p in present},
+            "param_groups": [dict(g, params=list(range(br.n_branch * n_par)))
+                             for g in optim["param_groups"]]}
+        return state
+
+    def _local_optimizer_state(self, optim):
+        """This rank's share of a checkpoint's ``optim_state`` (one AdamW
+        over every branch's students, in branch order): its branches'
+        entries, renumbered from 0."""
+        if self.branches is None:
+            return optim
+        local = list(self.branches.local)
+        n_par = len(optim["param_groups"][0]["params"]) // \
+            self.branches.n_branch
+        return {"state": {j * n_par + p: optim["state"][b * n_par + p]
+                          for j, b in enumerate(local) for p in range(n_par)
+                          if b * n_par + p in optim["state"]},
+                "param_groups": [dict(g, params=list(range(len(local)
+                                                            * n_par)))
+                                 for g in optim["param_groups"]]}
 
     def save(self, base_path, epo, is_best):
         """Write the checkpoint of epoch ``epo`` (rank 0 writes; every rank
-        takes part in gathering the pseudo-round state)."""
+        takes part in gathering the pseudo-round state and, branch
+        parallel, the branches' state)."""
         extra = {"best_acc": self.best_acc, "best_epoch": self.best_epoch,
                  **self._pseudo_checkpoint_meta()}
+        if self.branches is not None or PC.is_writer():
+            state = self.checkpoint_state()
         if PC.is_writer():
-            save_checkpoint(base_path, epo, self.checkpoint_state(), is_best,
-                            extra=extra)
+            save_checkpoint(base_path, epo, state, is_best, extra=extra)
 
     def resume(self, base_path, best=False):
         """Restore networks, optimiser and counters from ``base_path``;
-        returns the epoch to continue from (0 without a checkpoint).  Data
-        parallel, every rank reads it after a barrier."""
-        PC.barrier(self.group)
+        returns the epoch to continue from (0 without a checkpoint).  Over
+        several processes every rank reads it after a barrier and takes
+        its branches' networks and AdamW state."""
+        PC.barrier(self.world)
         state, meta = restore_checkpoint(base_path, best=best)
         if state is None:
             return 0
         for key, net in self.networks.items():
             net.load_state_dict(port_state_from_reference(state[key]))
-        self.optimizer.load_state_dict(state["optim_state"])
+        self.optimizer.load_state_dict(
+            self._local_optimizer_state(state["optim_state"]))
         self.best_acc = [float(a) for a in
                          np.atleast_1d(meta.get("best_acc", self.best_acc))]
         self.best_epoch = [int(e) for e in np.atleast_1d(
@@ -673,7 +772,7 @@ class BaseTrainer:
                 start=epo_tm)
             history.append({**losses, "accs": accs, "errs": errs})
             if base_path and PC.any_true(self._preemption_requested(),
-                                         self.group):
+                                         self.world):
                 self.logger.print("L1", "preemption requested — checkpointed "
                                         f"at epoch {epo + 1}; resume with "
                                         "run(resume=True)")
@@ -771,6 +870,7 @@ def run_regime(trainer_cls, exp_mark: str, params=None, device=None):
     cfg = Config().override(params)
     np.random.seed(cfg.seed)
     mesh = regime_mesh(cfg, device)
+    local_branches(mesh, 0, trainer_cls.n_models)   # raises before a launch
     if mesh is None or mesh.size == 1:
         _, base_path, logger = make_experiment(cfg, exp_mark)
         return trainer_cls(cfg, device=device, logger=logger).run(base_path)

@@ -207,12 +207,12 @@ def sample_weights(islabeled, pseudo_weight):
 
 
 @torch.inference_mode()
-def predict_heads_batch(models, images_u8, means, cfg, with_mean):
+def predict_heads_batch(models, images_u8, means, cfg):
     """The predictions of the validation step (``ubpl_tpu/train/
     base_trainer.py:554-584``): eval forward of every model on the same
-    batch, last stack, ``decode_heatmaps_mul``, the mean of the heads'
-    coordinates appended as one more head when ``with_mean``.  Returns
-    coords [M', B, K, 2] with M' = len(models) + with_mean."""
+    batch, last stack, ``decode_heatmaps_mul``.  Returns coords [M, B, K,
+    2] (the mean head is appended by the caller, which may hold some of
+    the heads only: ``BaseTrainer._validate_heads``)."""
     B, dev = images_u8.shape[0], images_u8.device
     imgs = A.color_normalize(images_to_float(images_u8), means)
     last = torch.stack([
@@ -220,11 +220,8 @@ def predict_heads_batch(models, images_u8, means, cfg, with_mean):
         for m in models])                                # [M, B, K, H, W]
     center = torch.full((B, 2), float(cfg.inp_res // 2), device=dev)
     scale = torch.full((B,), cfg.inp_res / 200.0, device=dev)
-    coords, coords_mean, _, _ = HM.decode_heatmaps_mul(
-        last, center, scale, (cfg.out_res, cfg.out_res))
-    if with_mean:
-        coords = torch.cat([coords, coords_mean[None]], 0)
-    return coords
+    return HM.decode_heatmaps_mul(last, center, scale,
+                                  (cfg.out_res, cfg.out_res))[0]
 
 
 @torch.inference_mode()

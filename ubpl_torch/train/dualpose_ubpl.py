@@ -21,26 +21,27 @@ AdamW over both students and the EMA.  ``dualpose`` is the
 same trainer with FDL off and no EPC (``ubpl_tpu/__main__.py:63-67``).
 ``Config.fuse_teacher_forward`` stacks the four forwards into one XLA
 program in the JAX package and leaves the values unchanged; it is ignored
-here.  Data parallel, the counts, gradients and metrics are global as in
-``mt_ubpl.teacher_student_step``.
+here.  Data and branch parallel, the counts, gradients, metrics and the
+branch exchanges are as in ``mt_ubpl.teacher_student_step``.
 """
 import torch
 
 from . import losses as L
 from .base_trainer import run_regime
 from .common import sample_weights
-from .mt_ubpl import (MTUBPLTrainer, _forward_views, _weighted, fdc_loss,
-                      global_counts, global_metrics, loss_groups,
+from .mt_ubpl import (MTUBPLTrainer, _forward_views, _weighted,
+                      branch_features, branch_metrics, ensemble_targets,
+                      fdc_loss, global_counts, global_metrics, loss_groups,
                       optimize_and_ema)
 
 
 def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
                   islabeled, cons_weight, fdl_weight, pseudo_weight,
-                  ema_alpha, cfg, group=None):
+                  ema_alpha, cfg, group=None, branches=None):
     """One DualPose(_UBPL) step (``ubpl_tpu/train/dualpose_ubpl.py:
     76-196``) of M branches on built views; device-tensor metrics as
     ``mt_ubpl.teacher_student_step`` returns them (``group``: the ranks
-    that split the batch)."""
+    that split the batch; ``branches``: those that split the branches)."""
     M = len(students)
     sw_pos, sw_nega, sw_cons = sample_weights(islabeled, pseudo_weight)
     use_epc = bool(cfg.use_ensemble_pseudo)
@@ -53,7 +54,8 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
            for s in students]
     outs = [p[0] for p, _ in fwd]             # [B, S, K, H, W] per branch
     feats = [f[0] for _, f in fwd]
-    teacher_outs = torch.stack(outs_ema) if use_epc else None
+    teacher_outs = (ensemble_targets([[o] for o in outs_ema], branches)[0]
+                    if use_epc else None)
 
     zero = torch.zeros((), device=islabeled.device)
     sums = {k: [zero] * M for k in ("mtc", "mtc_n", "pec", "pec_n", "epc",
@@ -88,18 +90,19 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
         fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
                     "all": torch.ones_like(sw_pos, dtype=torch.bool)
                     }[cfg.fdl_label]
-        fdc, fdc_count = fdc_loss([feats[0]], [feats[1]], fdl_mask,
-                                  fdl_weight, cfg, group)
+        fa, fb = branch_features([[f] for f in feats], branches)
+        fdc, fdc_count = fdc_loss(fa, fb, fdl_mask, fdl_weight, cfg, group)
 
-    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
+    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg, branches)
     optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha, group)
-    return global_metrics(
+                     mld_alpha, group, branches)
+    return branch_metrics(global_metrics(
         {"pec": pec.detach(), "pec_count": counts["pec_n"],
          "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
          "epc": epc.detach(), "epc_count": counts["epc_n"],
          "fdc": fdc.detach(), "fdc_count": fdc_count,
-         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group)
+         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group),
+        branches)
 
 
 class DualPoseUBPLTrainer(MTUBPLTrainer):
@@ -117,7 +120,8 @@ class DualPoseUBPLTrainer(MTUBPLTrainer):
                                   occlude=cfg.use_occlusion_ema)
         return dualpose_step(self.students, self.teachers, self.optimizer,
                              stu, ema, islabeled, cons_weight, fdl_weight,
-                             pseudo_weight, ema_alpha, cfg, self.group)
+                             pseudo_weight, ema_alpha, cfg, self.group,
+                             self.branches)
 
 
 def exec_regime(exp_mark="DualPose_UBPL", params=None, device=None):

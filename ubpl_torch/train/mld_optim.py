@@ -20,7 +20,10 @@ forward and two ``torch.autograd.grad`` pullbacks, combines them here and
 hands the result to AdamW.  Data parallel, ``mld_combine`` takes gradients
 already summed over the ranks (the step all-reduces both pullbacks first),
 so its norms and inner product are the global gradients', as in the JAX
-package, and every rank computes the same combination.
+package, and every rank computes the same combination.  Branch parallel,
+each rank holds its own students' gradients: the inner product and both
+squared norms are summed over the branch group before the cosine, so each
+rank combines its part of the one process's gradient.
 """
 import torch
 
@@ -29,15 +32,25 @@ def _global_norm(tensors):
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def mld_combine(primary, secondary, alpha, eps=1e-12):
+def _square_norm(tensors):
+    return torch.stack(torch._foreach_norm(tensors)).square().sum()
+
+
+def mld_combine(primary, secondary, alpha, eps=1e-12, branches=None):
     """Combine two lists of gradients (one tensor per parameter) as the
-    reference optimiser executes (see the module docstring).  Returns the
-    list of combined gradients."""
+    reference optimiser executes (see the module docstring); with
+    ``branches`` (a ``parallel.collectives.BranchGroup``) the lists are
+    this rank's part of them.  Returns the list of combined gradients."""
     total = torch._foreach_add(primary, secondary)
     ip = torch.stack([x.sum() for x in torch._foreach_mul(secondary, total)]
                      ).sum()
-    tot_norm = _global_norm(total)
-    sec_norm = _global_norm(secondary)
+    if branches is None:
+        tot_norm = _global_norm(total)
+        sec_norm = _global_norm(secondary)
+    else:
+        ip, tot_sq, sec_sq = branches.sum_over_branches(torch.stack(
+            [ip, _square_norm(total), _square_norm(secondary)]))
+        tot_norm, sec_norm = tot_sq.sqrt(), sec_sq.sqrt()
     cosine = ip / (tot_norm * sec_norm + eps)
     vertical = torch._foreach_sub(
         secondary, torch._foreach_mul(total, cosine * sec_norm

@@ -30,6 +30,17 @@ rank's loss is ``w * local sum / global count``: the sum of the ranks'
 gradients is then the gradient of the global loss, and the gradients are
 summed (``parallel.collectives.all_reduce_grads``) before AdamW, so every
 rank takes the same step.  The returned metrics are global.
+
+Branch parallel (``branches``: the ranks that split the branches, each
+holding its own students and teachers), the step makes the exchanges that
+GSPMD inserts around the JAX package's ``model``-sharded stack: every
+teacher's last stack is gathered for EPC's target (``ensemble_targets``, no
+gradient), every student's features for FDC (``branch_features``, whose
+gradient flows back to the branch that made them), and MLD's norms and
+inner product are summed over the branch group.  Each rank's loss holds its
+own branches' PEC, MTC and EPC and its share of FDC (``loss_groups``), and
+its gradients are summed over its batch group only.  The per-branch metrics
+are gathered (``branch_metrics``), so every rank returns one process's.
 """
 import torch
 
@@ -80,8 +91,47 @@ def global_metrics(metrics, group):
     return {**metrics, **dict(zip(keys, summed))}
 
 
+def ensemble_targets(outs_ema, branches=None):
+    """EPC's teacher stacks per view, [M, B, 1, K, H, W]: every branch's
+    teacher's last stack (``losses._pseudo_target_loss`` reads no other),
+    from ``outs_ema[m][a]`` of this rank's branches; gathered over the
+    branch group in one collective (the teachers run without gradient)."""
+    last = torch.stack([torch.stack([o[:, -1:] for o in views])
+                        for views in outs_ema])       # [M_local, V, ...]
+    if branches is not None:
+        last = branches.gather_branches(last)
+    return list(last.unbind(1))
+
+
+def branch_features(feats, branches=None):
+    """FDC's inputs ``[m][a]`` of every branch from ``feats[m][a]`` of this
+    rank's branches: gathered over the branch group in one collective,
+    the gradient flowing back to each branch's rank (``feats`` itself on
+    one process)."""
+    if branches is None:
+        return feats
+    stacked = branches.gather_branches_grad(
+        torch.stack([torch.stack(views) for views in feats]))
+    return [list(views.unbind(0)) for views in stacked.unbind(0)]
+
+
+def branch_metrics(metrics, branches=None):
+    """One process's metrics from this rank's: the per-branch ones gathered
+    into [M] and EPC's selection counts summed over the branch group, in
+    one collective (FDC's are the same on every rank)."""
+    if branches is None:
+        return metrics
+    per = ["pec", "pec_count", "mtc", "mtc_count", "epc", "epc_count"]
+    summed = ["n_pseudo", "n_sel"]
+    got = branches.gather_many([metrics[k] for k in per]
+                               + [metrics[k] for k in summed])
+    return {**metrics,
+            **{k: t.flatten(0, 1) for k, t in zip(per, got)},
+            **{k: t.sum(0) for k, t in zip(summed, got[len(per):])}}
+
+
 def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha=None, group=None):
+                     mld_alpha=None, group=None, branches=None):
     """One optimiser step over the students, then each teacher's
     parameters (not its BatchNorm stats) move to ``ema_alpha * teacher +
     (1 - ema_alpha) * student``.
@@ -92,7 +142,8 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
     ``mld_optim.mld_combine`` and written into ``.grad``.  With a
     ``group`` the gradients (both pullbacks for MLD, whose norms and inner
     product are over the global gradients) are summed over the ranks
-    before they are used."""
+    before they are used; with ``branches`` MLD's norms and inner product
+    are summed over every branch's students."""
     optimizer.zero_grad(set_to_none=True)
     params = [p for s in students for p in s.parameters()]
     if mld_alpha is None:
@@ -101,7 +152,8 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
     else:
         g_pri, g_sec = mld_gradients(*loss, params)
         PC.all_reduce_grads(g_pri + g_sec, group)
-        for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha)):
+        for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha,
+                                            branches=branches)):
             p.grad = g
     optimizer.step()
     with torch.no_grad():
@@ -111,12 +163,18 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
         torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
 
 
-def loss_groups(pec, mtc, epc, fdc, cfg):
+def loss_groups(pec, mtc, epc, fdc, cfg, branches=None):
     """The step's loss for ``optimize_and_ema``: PEC is the primary group,
     MTC + EPC + 2 x FDC the secondary (``ubpl_tpu/train/mt_ubpl.py:
     205-206``); summed for AdamW, a pair with the MLD weight for
-    ``optimizer="mld"``.  Returns (loss, mld_alpha)."""
-    pri, sec = pec.sum(), (mtc + epc).sum() + 2.0 * fdc
+    ``optimizer="mld"``.  Returns (loss, mld_alpha).
+
+    Branch parallel, ``pec``, ``mtc`` and ``epc`` are this rank's branches'
+    and every rank of the branch group computes the whole FDC: the
+    exchange of the features sums their gradients over the group, so each
+    rank weights FDC by 2 / size, and the sum is 2 x FDC's gradient."""
+    share = 2.0 / (1 if branches is None else branches.size)
+    pri, sec = pec.sum(), (mtc + epc).sum() + share * fdc
     if cfg.optimizer == "mld":
         return (pri, sec), float(cfg.mld_alpha)
     return pri + sec, None
@@ -147,7 +205,7 @@ def fdc_loss(feats_a, feats_b, fdl_mask, fdl_weight, cfg, group):
 
 def teacher_student_step(students, teachers, optimizer, views, islabeled,
                          cons_weight, fdl_weight, pseudo_weight, ema_alpha,
-                         cfg, *, use_epc, use_fdc, group=None):
+                         cfg, *, use_epc, use_fdc, group=None, branches=None):
     """One optimisation step of M (student, EMA teacher) branches on built
     views: M = 2 with EPC and FDC is MT_UBPL, M = 1 without them is MT.
 
@@ -157,7 +215,9 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
     its BatchNorm stats) move to ``ema_alpha * teacher + (1 - ema_alpha) *
     student`` with the NEW student parameters.  Returns device-tensor
     metrics; the per-branch ones have shape [M].  ``group``: the ranks
-    that split the batch (see the module docstring).
+    that split the batch; ``branches``: the ranks that split the branches,
+    ``students`` and ``teachers`` being this rank's (see the module
+    docstring).
     """
     M = len(students)
     sw_pos, sw_nega, _ = sample_weights(islabeled, pseudo_weight)
@@ -167,8 +227,7 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
     outs = [p for p, _ in fwd]          # outs[m][a]: [B, S, K, H, W]
     feats = [f for _, f in fwd]         # feats[m][a]: [B, N, C, hf, wf]
     if use_epc:
-        teacher_outs = [torch.stack([outs_ema[m][a] for m in range(M)])
-                        for a in range(len(views))]
+        teacher_outs = ensemble_targets(outs_ema, branches)
 
     zero = torch.zeros((), device=islabeled.device)
     sums = {k: [zero] * M for k in ("mtc", "mtc_n", "pec", "pec_n", "epc",
@@ -207,29 +266,31 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
         fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
                     "all": torch.ones_like(sw_pos, dtype=torch.bool)
                     }[cfg.fdl_label]
-        fdc, fdc_count = fdc_loss(feats[0], feats[1], fdl_mask, fdl_weight,
-                                  cfg, group)
+        fa, fb = branch_features(feats, branches)
+        fdc, fdc_count = fdc_loss(fa, fb, fdl_mask, fdl_weight, cfg, group)
 
-    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg)
+    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg, branches)
     optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
-                     mld_alpha, group)
-    return global_metrics(
+                     mld_alpha, group, branches)
+    return branch_metrics(global_metrics(
         {"pec": pec.detach(), "pec_count": counts["pec_n"],
          "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
          "epc": epc.detach(), "epc_count": counts["epc_n"],
          "fdc": fdc.detach(), "fdc_count": fdc_count,
-         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group)
+         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group),
+        branches)
 
 
 def mt_ubpl_step(students, teachers, optimizer, views, islabeled,
                  cons_weight, fdl_weight, pseudo_weight, ema_alpha, cfg,
-                 group=None):
+                 group=None, branches=None):
     """One MT_UBPL step (``ubpl_tpu/train/mt_ubpl.py:95-239``) of two
     branches on built views; see ``teacher_student_step``."""
     return teacher_student_step(
         students, teachers, optimizer, views, islabeled, cons_weight,
         fdl_weight, pseudo_weight, ema_alpha, cfg,
-        use_epc=bool(cfg.use_ensemble_pseudo), use_fdc=True, group=group)
+        use_epc=bool(cfg.use_ensemble_pseudo), use_fdc=True, group=group,
+        branches=branches)
 
 
 class MTUBPLTrainer(BaseTrainer):
@@ -251,7 +312,8 @@ class MTUBPLTrainer(BaseTrainer):
         views, islabeled = self.make_views(idxs, self.n_views)
         return mt_ubpl_step(self.students, self.teachers, self.optimizer,
                             views, islabeled, cons_weight, fdl_weight,
-                            pseudo_weight, ema_alpha, self.cfg, self.group)
+                            pseudo_weight, ema_alpha, self.cfg, self.group,
+                            self.branches)
 
     def epoch_schedules(self, epo):
         return S.ssl_epoch_schedules(self.cfg, epo)

@@ -31,7 +31,9 @@ Data parallel (the trainer's ``group``), every rank gathers each inference
 batch whole, draws its augmentations for the whole batch (the generators
 stay in step), predicts its share of the rows and the shares are gathered
 in order (``BaseTrainer.predict_split``); every rank then runs the same
-numpy selection and injects the rows that it holds.
+numpy selection and injects the rows that it holds.  Branch parallel (the
+trainer's ``branches``), each rank predicts with its own teachers and the
+coordinates are gathered over the branch group before the selection.
 """
 import numpy as np
 import torch
@@ -105,7 +107,8 @@ class PseudoLabelingLoop:
         """Both teachers on every unlabeled sample: (ori [M, N, K, 2],
         augs [aug_views, M, N, K, 2]) as float64 numpy; one read to the
         host.  The teachers are left in train mode, as the steps run
-        them."""
+        them.  Branch parallel, this rank's teachers' coordinates are
+        gathered with the others' in one collective."""
         tr = self.trainer
         idxs = np.asarray(tr.unlabeled_idxs)
         per_batch = []
@@ -129,7 +132,10 @@ class PseudoLabelingLoop:
         finally:
             for t in tr.teachers:
                 t.train()
-        coords = (torch.cat(per_batch).permute(1, 2, 0, 3, 4)
+        coords = torch.cat(per_batch).permute(2, 0, 1, 3, 4)  # [M, N, V..]
+        if tr.branches is not None:
+            coords = tr.branches.gather_branches(coords)
+        coords = (coords.permute(2, 0, 1, 3, 4)
                   .cpu().double().numpy())             # [V, M, N, K, 2]
         return coords[0], coords[1:]
 
