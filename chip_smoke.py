@@ -92,7 +92,20 @@ width through their user entry points:
   * cli_classification: ``python -m ubpl_torch classification
     --mode=mt_ubpl`` on a CIFAR-10 tree in torchvision's layout written
     under ``chiprun_out/smoke_data``, 2 epochs.  The classification and
-    LitePose paths launch no heatmap kernel.
+    LitePose paths launch no heatmap kernel;
+  * bench: ``python -m ubpl_torch bench`` in-process
+    (``ubpl_torch/bench.py``) at its default shape, MT_UBPL HG3 bs 32
+    bf16, one warm-up and 20 timed steps: exactly one JSON line on stdout
+    whose ``device`` is this card's name and power limit, and 2 heatmap
+    launches per step;
+  * bench_stream: the same with ``UBPL_BENCH_STREAM=1`` (the streamed
+    path);
+  * mfu: ``bench.mfu_report`` (flops of one step by ``FlopCounterMode``,
+    the mean step of a 20-step window, TFLOP/s and MFU), its flops held to 16
+    forwards per image (0.98-1.02x of an HG3 forward's count on the card);
+  * serve_bench: ``bench.main_serving`` (``tools/bench_infer_torch.py``)
+    at bs 1, 8, 32 and 64, with host input and with input on the card: one
+    line each, no heatmap launch.
 
 The SSL training phases are followed by a ``torch.profiler`` window over a
 few more steps (device busy time, idle share, device time by kind).
@@ -113,7 +126,9 @@ checkpoints, the CLI runs and their trace) go to ``.kernel_build/``.
 """
 import contextlib
 import glob
+import io
 import json
+import math
 import os
 import re
 import shutil
@@ -121,6 +136,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -2265,6 +2281,112 @@ def phase_cli_classification(counts):
     return counts.read()
 
 
+def captured_lines(fn, *args):
+    """Run ``fn(*args)`` with stdout captured; (its result, the lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue().splitlines()
+
+
+def bench_phase(counts, smi, phase, **env):
+    """``python -m ubpl_torch bench`` in this process under ``env``: exit
+    code 0, exactly one JSON line with ``bench.py``'s keys plus ``device``
+    (this card's name and power limit) and ``baseline``, a finite positive
+    value, and 2 heatmap launches per step (the warm-up and the timed
+    ones).  Returns the launches."""
+    from ubpl_torch import __main__ as CLI
+    from ubpl_torch import bench as PB
+    with mock.patch.dict(os.environ, env):
+        steps = PB.env_knobs()["steps"]
+        counts.reset()
+        t0 = time.perf_counter()
+        rc, lines = captured_lines(CLI.main, ["bench"])
+        wall_s = time.perf_counter() - t0
+        launches = counts.read()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"{phase}: exit {rc}, stdout {lines!r}")
+    line = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "device", "baseline"}
+    if set(line) != keys or line["device"] != smi:
+        raise AssertionError(f"{phase}: line {line} (card {smi!r})")
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"{phase}: value {line['value']}")
+    if launches["heatmap_synth"] != 2 * (steps + 1):
+        raise AssertionError(f"{phase}: {launches} heatmap launches in "
+                             f"{steps + 1} steps")
+    emit({"phase": phase, "line": line, "steps": steps,
+          "kernel_launches": launches, "wall_s": wall_s})
+    return launches
+
+
+def phase_bench(counts, smi):
+    return bench_phase(counts, smi, "bench")
+
+
+def phase_bench_stream(counts, smi):
+    return bench_phase(counts, smi, "bench_stream", UBPL_BENCH_STREAM="1")
+
+
+def phase_mfu(counts, smi):
+    """``bench.mfu_report`` at bs 32, 20 steps: flops per step within
+    0.98-1.02x of 16 HG3 forwards per image (counted on the card), 2
+    heatmap launches in each of its 21 steps, the line naming this card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from ubpl_torch import bench as PB
+    from ubpl_torch.models import create_pose_model
+    bs, steps = 32, 20
+    net = create_pose_model("HG3", 9).cuda().eval()
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        net(torch.zeros(1, 3, 256, 256, device="cuda"))
+    per_image = counter.get_total_flops()
+    del net
+    counts.reset()
+    rep = PB.mfu_report(bs, steps)
+    launches = counts.read()
+    ratio = rep["flops_per_step"] / (16 * per_image * rep["batch_size"])
+    if not 0.98 <= ratio <= 1.02:
+        raise AssertionError(f"mfu: {rep['flops_per_step']} flops per step "
+                             f"is {ratio} x 16 forwards of {per_image}")
+    if rep["device"] != smi or not 0 < rep["mfu"] < 1:
+        raise AssertionError(f"mfu: report {rep} (card {smi!r})")
+    if launches["heatmap_synth"] != 2 * (rep["steps"] + 1):
+        raise AssertionError(f"mfu: {launches} heatmap launches")
+    emit({"phase": "mfu", **rep, "forward_flops_per_image": per_image,
+          "ratio_to_16_forwards": ratio, "kernel_launches": launches})
+    return launches
+
+
+def phase_serve_bench(counts, smi):
+    """``bench.main_serving`` (``tools/bench_infer_torch.py``) at bs 1, 8,
+    32, 64 with host input, then with input on the card: one line per
+    batch size naming this card, finite positive rates, no heatmap
+    launch (serving synthesises no targets)."""
+    from ubpl_torch import bench as PB
+    sizes = (1, 8, 32, 64)
+    counts.reset()
+    out = {}
+    for mode, flag in (("host_input", "0"), ("device_input", "1")):
+        with mock.patch.dict(os.environ, UBPL_INFER_DEVICE_INPUT=flag):
+            rc, lines = captured_lines(PB.main_serving, sizes)
+        rows = [json.loads(x) for x in lines]
+        if rc != 0 or len(rows) != len(sizes) or not all(
+                f"bs={b}," in r["metric"] for b, r in zip(sizes, rows)):
+            raise AssertionError(f"serve_bench {mode}: {rc} {lines!r}")
+        for r in rows:
+            if r["device"] != smi or not (
+                    math.isfinite(r["value"]) and r["value"] > 0
+                    and r["latency_ms"] > 0):
+                raise AssertionError(f"serve_bench {mode}: {r}")
+        out[mode] = rows
+    launches = counts.read()
+    if launches["heatmap_synth"] != 0:
+        raise AssertionError(f"serve_bench: {launches} heatmap launches")
+    emit({"phase": "serve_bench", **out, "kernel_launches": launches})
+    return launches
+
+
 class Counts:
     """Reset and read the launch counters of every port kernel."""
 
@@ -2327,6 +2449,9 @@ def main(argv=None):
         paths.append(phase_cli_mt_ubpl_model(counts))
     if want("model_nccl") and torch.cuda.device_count() >= 2:
         paths.append(phase_model_nccl())
+    paths += [phase(counts, smi) for phase in (
+        phase_bench, phase_bench_stream, phase_mfu, phase_serve_bench)
+        if want(phase.__name__[len("phase_"):])]
     if only is None:
         try:
             paths.append(phase_train_classification(counts))

@@ -144,14 +144,33 @@ def test_exec_runs_every_regime_over_the_grid(monkeypatch, quick):
 
 
 @pytest.mark.parametrize("regime,says", [
-    ("bench", "not ported yet: the port bench, bench_torch.py (ROADMAP A.2)"),
     ("nope", "unknown regime 'nope'")])
 def test_regimes_not_ported_exit_nonzero(regime, says, capsys):
-    """bench names its ROADMAP item; an unknown regime prints the usage;
-    both exit non-zero."""
+    """An unknown regime prints the usage and exits non-zero (every regime
+    of the JAX CLI is ported)."""
     assert CLI.main([regime]) != 0
     out = capsys.readouterr()
     assert says in out.out + out.err
+
+
+def test_bench_regime_on_cpu(monkeypatch, capsys):
+    """``bench --device=cpu`` (HG1, 64 -> 16, bs 2, 1 step) exits 0 and
+    prints exactly one JSON line on stdout, labelled cpu."""
+    from ubpl_torch import bench as PB
+    monkeypatch.setattr(PB, "SHAPE",
+                        {"model": "HG1", "inp_res": 64, "out_res": 16})
+    monkeypatch.setenv("UBPL_BENCH_BS", "2")
+    monkeypatch.setenv("UBPL_BENCH_STEPS", "1")
+    for k in ("SCAN", "FUSE", "FOLD", "UNROLL", "REMAT", "STREAM", "SCANBR"):
+        monkeypatch.delenv(f"UBPL_BENCH_{k}", raising=False)
+    assert CLI.main(["bench", "--device=cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert {"metric", "value", "unit", "vs_baseline", "device",
+            "baseline"} == set(line)
+    assert line["device"] == "cpu" and "bs=2" in line["metric"]
+    assert line["value"] > 0
 
 
 def test_device_defaults_to_the_card(monkeypatch, data_root, tmp_path):

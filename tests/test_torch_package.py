@@ -48,7 +48,7 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-NEW_MODULES = ["__main__", "data.arrays", "data.base", "data.cifar",
+NEW_MODULES = ["__main__", "bench", "data.arrays", "data.base", "data.cifar",
                "data.native_io", "data.occluders", "data.preview",
                "data.sources", "models.classification",
                "models.classification.mobilenet",

@@ -1,11 +1,12 @@
 """CLI: python -m ubpl_torch <regime> [--key=value ...]
 
 Regimes: supervised | mt | mt_ubpl | dualpose | dualpose_ubpl | exec |
-classification | preview
+classification | preview | bench
 (`exec` runs the reference's full sweep grid, projects/exec.py equivalent;
 `exec --quick` a 2-epoch HG2 smoke of all five regimes over Mouse;
 `classification --mode=supervised|mt|mt_ubpl` the CIFAR branch, e.g.
-`--model=ResNet --data_source=cifar10`).
+`--model=ResNet --data_source=cifar10`; `bench` prints one JSON line of
+MT_UBPL training images/s, ``ubpl_torch/bench.py``).
 
 `--device=cuda|cpu` picks the device; without it the port runs on the CUDA
 card and stops if there is none.
@@ -43,14 +44,9 @@ Datasets are read in the reference's layout under --data_root, e.g.
 pickled batches).  Runs write to {experiment_root}/<experiment>/: ckpts/,
 logs/ (classification: logs/classification.json).
 
-The port's counterpart of ``ubpl_tpu/__main__.py``; its `bench` regime is
-not ported yet (ROADMAP A).
+The port's counterpart of ``ubpl_tpu/__main__.py``.
 """
 import sys
-
-_NOT_PORTED = {
-    "bench": "the port bench, bench_torch.py (ROADMAP A.2)",
-}
 
 
 def parse_overrides(argv):
@@ -109,10 +105,9 @@ def main(argv=None):
     elif regime == "preview":
         from ubpl_torch.data.preview import main as preview_main
         preview_main(params)
-    elif regime in _NOT_PORTED:
-        print(f"regime {regime!r} is not ported yet: {_NOT_PORTED[regime]}",
-              file=sys.stderr)
-        return 2
+    elif regime == "bench":
+        from ubpl_torch.bench import main as bench_main
+        return bench_main(device)
     else:
         print(f"unknown regime {regime!r}\n{__doc__}")
         return 1
