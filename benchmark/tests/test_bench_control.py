@@ -1,0 +1,27 @@
+"""On the card: the control (the plain reference computed in fp8 in the
+program's place) comes out not correct at each cell's own size, and the
+program comes out correct on the same seed.  Skips without a card."""
+import pytest
+import torch
+
+from benchmark import calibrate, harness
+
+CELLS = [w["name"] for w in harness.load_spec()["workloads"]
+         if w["chips"] == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_control_fails_the_limits(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the limits are the card's")
+    cell = harness.Cell(name)
+    out = calibrate.readings(cell, 2 ** 31 + 101, torch.device("cuda"),
+                             2.0, control=True)
+    limits = cell.limits
+
+    def fails(reading):
+        return any(reading[k][0] > lim if isinstance(reading[k], list)
+                   else reading[k] > lim for k, lim in limits.items())
+    assert fails(out["control"]), out["control"]
+    assert not fails(out["program"]), out["program"]
