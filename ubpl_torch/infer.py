@@ -9,7 +9,12 @@ Requests are cut into fixed-size chunks (the last one zero-padded, its
 padding masked off on return).  On the card each chunk is staged in pinned
 host memory and copied with ``non_blocking``; its results come back by a
 non-blocking copy read only after the next chunk has been queued, so host
-staging overlaps device compute.
+staging overlaps device compute.  ``frames_requested`` and
+``frames_computed`` count the frames asked for and the frames run through
+the network (whole chunks, padding included) since construction.  Under a
+recording profiler each call is a ``serve.request`` span, each chunk's
+phases ``serve.stage``, ``serve.normalize``, ``serve.forward`` and
+``serve.collect`` (``utils.profiling.span``).
 
     est = PoseEstimator.from_torch_checkpoint("checkpoint.pth.tar",
                                               model="HG3", kps_count=9)
@@ -29,7 +34,8 @@ from .device import memory_format, resolve_device
 from .models import create_pose_model
 from .models.weights import load_reference_checkpoint, load_state
 from .train.checkpointing import checkpoint_paths
-from .train.common import predict_keypoints
+from .train.common import decode_keypoints, normalize_images
+from .utils.profiling import span
 
 
 class PoseEstimator:
@@ -46,6 +52,8 @@ class PoseEstimator:
         self.means = torch.as_tensor(means, dtype=torch.float32,
                                      device=self.device)
         self._staging = [None, None]
+        self.frames_requested = 0
+        self.frames_computed = 0
 
     @classmethod
     def from_checkpoint(cls, base_path, model="HG3", kps_count=9,
@@ -98,32 +106,41 @@ class PoseEstimator:
         kps = np.zeros((N, K, 2), np.float32)
         scores = np.zeros((N, K), np.float32)
         pending = None
-        for i, start in enumerate(range(0, N, bs)):
-            n = min(bs, N - start)
-            host = self._host_buffer(i % 2)
-            host[:n].copy_(torch.from_numpy(images_u8[start:start + n]))
-            host[n:].zero_()
-            with torch.inference_mode():
-                coords, sc = predict_keypoints(
-                    self.model, host.to(self.device, non_blocking=True),
-                    self.means, self.cfg)
-                out = (coords.to("cpu", non_blocking=True),
-                       sc.to("cpu", non_blocking=True))
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+        with span("serve.request"):
+            for i, start in enumerate(range(0, N, bs)):
+                n = min(bs, N - start)
+                with span("serve.stage"):
+                    host = self._host_buffer(i % 2)
+                    host[:n].copy_(torch.from_numpy(
+                        images_u8[start:start + n]))
+                    host[n:].zero_()
+                    frames = host.to(self.device, non_blocking=True)
+                with torch.inference_mode():
+                    with span("serve.normalize"):
+                        imgs = normalize_images(frames, self.means)
+                    with span("serve.forward"):
+                        coords, sc = decode_keypoints(self.model, imgs,
+                                                      self.cfg)
+                        out = (coords.to("cpu", non_blocking=True),
+                               sc.to("cpu", non_blocking=True))
+                        done = None
+                        if self.device.type == "cuda":
+                            done = torch.cuda.Event()
+                            done.record()
+                self.frames_requested += n
+                self.frames_computed += bs
+                if pending is not None:
+                    self._collect(pending, kps, scores)
+                pending = (start, n, out, done)
             if pending is not None:
                 self._collect(pending, kps, scores)
-            pending = (start, n, out, done)
-        if pending is not None:
-            self._collect(pending, kps, scores)
         return kps, scores
 
     @staticmethod
     def _collect(pending, kps, scores):
         start, n, (coords, sc), done = pending
-        if done is not None:
-            done.synchronize()
-        kps[start:start + n] = coords[:n].numpy()
-        scores[start:start + n] = sc[:n].numpy()
+        with span("serve.collect"):
+            if done is not None:
+                done.synchronize()
+            kps[start:start + n] = coords[:n].numpy()
+            scores[start:start + n] = sc[:n].numpy()

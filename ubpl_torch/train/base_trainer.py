@@ -77,7 +77,7 @@ from ..parallel.mesh import (batch_rows, build_mesh, local_branches,
                              local_mesh_size)
 from ..utils import Logger, json_save
 from ..utils.preemption import PreemptionGuard
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 from ..utils.report import RunReport
 from . import losses as L
 from .checkpointing import restore_checkpoint, save_checkpoint
@@ -303,11 +303,19 @@ class BaseTrainer:
                          scale_range=scale_range, rot_range=rot_range,
                          occlusion=occlusion)
 
+    def view_options(self, i):
+        """``augmented_view``'s keyword arguments for view ``i`` of a step:
+        none, every view draws from the configured ranges."""
+        return {}
+
     def make_views(self, idxs, n_views):
         """Gather a training batch and build ``n_views`` independently
-        augmented views of it.  Returns (views, islabeled)."""
-        imgs, kps, islabeled = self.fetch_batch(self.train_data, idxs)
-        views = [self.augmented_view(imgs, kps) for _ in range(n_views)]
+        augmented views of it (view i with ``view_options(i)``).  Returns
+        (views, islabeled)."""
+        with span("train.views"):
+            imgs, kps, islabeled = self.fetch_batch(self.train_data, idxs)
+            views = [self.augmented_view(imgs, kps, **self.view_options(i))
+                     for i in range(n_views)]
         return views, islabeled
 
     def make_sampler(self):
@@ -409,7 +417,8 @@ class BaseTrainer:
         metrics = []
         for batch in batch_iter:
             self._step_num += 1
-            metrics.append(self.train_step(batch, *sched_args))
+            with span("train.step"):
+                metrics.append(self.train_step(batch, *sched_args))
         return metrics
 
     # ------------------------------------------------------------ validation

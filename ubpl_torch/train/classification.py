@@ -33,6 +33,7 @@ from ..device import autocast, memory_format, resolve_device
 from ..models import create_class_model, param_count
 from ..ops import augment as A
 from ..utils import Logger, json_save
+from ..utils.profiling import span
 from . import losses as L
 from . import schedules as S
 from .base_trainer import make_experiment
@@ -62,40 +63,45 @@ def class_step(students, teachers, optimizer, view, labels, islabeled,
     (and ``cons``, ``pseudo``, ``fdl`` where the mode has them), each the
     mean over the students as in the JAX step."""
     M = len(students)
-    sw_nega = (1.0 - (islabeled > 0).float()) * pseudo_weight
-    with torch.no_grad():
-        t_logits = torch.stack([class_forward(t, view, True, compute_dtype)[0]
-                                for t in teachers])
-    outs = [class_forward(s, view, True, compute_dtype) for s in students]
-    metrics = {}
-    ce = []
-    for logits, _ in outs:
-        s, n = L.class_loss(logits, labels)
-        ce.append(torch.where(n > 0, s / n.clamp(min=1), s))
-    total = sum(ce)
-    metrics["ce"] = total / M
-    if mode in ("mt", "mt_ubpl"):
-        cons = 0.0
-        for m, (logits, _) in enumerate(outs):
-            s, n = L.class_dist(logits, t_logits[m])
-            cons = cons + cons_weight * s / max(n, 1)
-        total = total + cons
-        metrics["cons"] = cons / M
-    if mode == "mt_ubpl":
-        pseudo = 0.0
+    with span("train.forward"):
+        with torch.no_grad():
+            t_logits = torch.stack([
+                class_forward(t, view, True, compute_dtype)[0]
+                for t in teachers])
+        outs = [class_forward(s, view, True, compute_dtype)
+                for s in students]
+    with span("train.losses"):
+        sw_nega = (1.0 - (islabeled > 0).float()) * pseudo_weight
+        metrics = {}
+        ce = []
         for logits, _ in outs:
-            s, n = L.class_pseudo(logits, t_logits, sw_nega)
-            pseudo = pseudo + cons_weight * torch.where(
-                n > 0, s / n.clamp(min=1), s)
-        total = total + pseudo
-        metrics["pseudo"] = pseudo / M
-        if outs[0][1] is not None:
-            s, n = L.class_feature_dist(outs[0][1], outs[1][1])
-            fdl = s / max(n, 1)
-            total = total + 2.0 * fdl
-            metrics["fdl"] = fdl
+            s, n = L.class_loss(logits, labels)
+            ce.append(torch.where(n > 0, s / n.clamp(min=1), s))
+        total = sum(ce)
+        metrics["ce"] = total / M
+        if mode in ("mt", "mt_ubpl"):
+            cons = 0.0
+            for m, (logits, _) in enumerate(outs):
+                s, n = L.class_dist(logits, t_logits[m])
+                cons = cons + cons_weight * s / max(n, 1)
+            total = total + cons
+            metrics["cons"] = cons / M
+        if mode == "mt_ubpl":
+            pseudo = 0.0
+            for logits, _ in outs:
+                s, n = L.class_pseudo(logits, t_logits, sw_nega)
+                pseudo = pseudo + cons_weight * torch.where(
+                    n > 0, s / n.clamp(min=1), s)
+            total = total + pseudo
+            metrics["pseudo"] = pseudo / M
+            if outs[0][1] is not None:
+                s, n = L.class_feature_dist(outs[0][1], outs[1][1])
+                fdl = s / max(n, 1)
+                total = total + 2.0 * fdl
+                metrics["fdl"] = fdl
+        metrics = {k: v.detach() for k, v in metrics.items()}
     optimize_and_ema(students, teachers, optimizer, total, ema_alpha)
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 class ClassificationTrainer:
@@ -180,14 +186,18 @@ class ClassificationTrainer:
     def train_step(self, idxs, cons_weight, pseudo_weight, ema_alpha):
         """Gather the batch ``idxs``, build its augmented view (draws from
         the trainer's generator) and take one ``class_step``."""
-        i = torch.as_tensor(np.asarray(idxs), device=self.device)
-        view = make_class_view(
-            self.train_images[i], self.means, self.cfg,
-            A.draw_augment(len(i), self.generator, self.device))
-        return class_step(self.students, self.teachers, self.optimizer,
-                          view, self.train_labels[i],
-                          self.train_islabeled[i], self.mode, cons_weight,
-                          pseudo_weight, ema_alpha, self.cfg.compute_dtype)
+        with span("train.step"):
+            with span("train.views"):
+                i = torch.as_tensor(np.asarray(idxs), device=self.device)
+                view = make_class_view(
+                    self.train_images[i], self.means, self.cfg,
+                    A.draw_augment(len(i), self.generator, self.device))
+                labels, islabeled = (self.train_labels[i],
+                                     self.train_islabeled[i])
+            return class_step(self.students, self.teachers, self.optimizer,
+                              view, labels, islabeled, self.mode,
+                              cons_weight, pseudo_weight, ema_alpha,
+                              self.cfg.compute_dtype)
 
     # ------------------------------------------------------------------ loop
     def train_epoch(self, epo):

@@ -183,13 +183,23 @@ def forward_heatmaps(model, images, train, compute_dtype, remat=False):
     return preds.float(), None if feats is None else feats.float()
 
 
+def normalize_images(images_u8, means):
+    """[B, R, R, 3] uint8 -> the networks' colour-normalised float input."""
+    return A.color_normalize(images_to_float(images_u8), means)
+
+
 def predict_keypoints(model, images_u8, means, cfg):
     """Eval forward of a uint8 batch: normalise -> model -> decode the last
     stack at the image centre/scale (reference projects/supervised.py:
     178-211, utils/process.py:320-327).  Returns (coords [B, K, 2],
     scores [B, K])."""
-    B, dev = images_u8.shape[0], images_u8.device
-    imgs = A.color_normalize(images_to_float(images_u8), means)
+    return decode_keypoints(model, normalize_images(images_u8, means), cfg)
+
+
+def decode_keypoints(model, imgs, cfg):
+    """``predict_keypoints`` after the normalisation, from its float
+    input ``imgs``."""
+    B, dev = imgs.shape[0], imgs.device
     preds, _ = forward_heatmaps(model, imgs, False, cfg.compute_dtype)
     center = torch.full((B, 2), float(cfg.inp_res // 2), device=dev)
     scale = torch.full((B,), cfg.inp_res / 200.0, device=dev)
@@ -214,7 +224,7 @@ def predict_heads_batch(models, images_u8, means, cfg):
     2] (the mean head is appended by the caller, which may hold some of
     the heads only: ``BaseTrainer._validate_heads``)."""
     B, dev = images_u8.shape[0], images_u8.device
-    imgs = A.color_normalize(images_to_float(images_u8), means)
+    imgs = normalize_images(images_u8, means)
     last = torch.stack([
         forward_heatmaps(m, imgs, False, cfg.compute_dtype)[0][:, -1]
         for m in models])                                # [M, B, K, H, W]

@@ -110,17 +110,20 @@ class DualPoseUBPLTrainer(MTUBPLTrainer):
     with the DualPose step."""
     regime = "DualPose_UBPL"
 
+    def view_options(self, i):
+        """The students' view (0) from the configured ranges, the
+        teachers' (1) from the weaker EMA ones."""
+        cfg = self.cfg
+        return {} if i == 0 else dict(scale_range=cfg.scale_range_ema,
+                                      rot_range=cfg.rot_range_ema,
+                                      occlude=cfg.use_occlusion_ema)
+
     def train_step(self, idxs, cons_weight, fdl_weight, pseudo_weight,
                    ema_alpha):
-        cfg = self.cfg
-        imgs, kps, islabeled = self.fetch_batch(self.train_data, idxs)
-        stu = self.augmented_view(imgs, kps)
-        ema = self.augmented_view(imgs, kps, scale_range=cfg.scale_range_ema,
-                                  rot_range=cfg.rot_range_ema,
-                                  occlude=cfg.use_occlusion_ema)
+        (stu, ema), islabeled = self.make_views(idxs, 2)
         return dualpose_step(self.students, self.teachers, self.optimizer,
                              stu, ema, islabeled, cons_weight, fdl_weight,
-                             pseudo_weight, ema_alpha, cfg, self.group,
+                             pseudo_weight, ema_alpha, self.cfg, self.group,
                              self.branches)
 
 

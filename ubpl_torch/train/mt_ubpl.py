@@ -45,6 +45,7 @@ are gathered (``branch_metrics``), so every rank returns one process's.
 import torch
 
 from ..parallel import collectives as PC
+from ..utils.profiling import span
 from . import losses as L
 from . import schedules as S
 from .base_trainer import BaseTrainer, run_regime
@@ -144,23 +145,25 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
     product are over the global gradients) are summed over the ranks
     before they are used; with ``branches`` MLD's norms and inner product
     are summed over every branch's students."""
-    optimizer.zero_grad(set_to_none=True)
-    params = [p for s in students for p in s.parameters()]
-    if mld_alpha is None:
-        loss.backward()
-        PC.all_reduce_grads([p.grad for p in params], group)
-    else:
-        g_pri, g_sec = mld_gradients(*loss, params)
-        PC.all_reduce_grads(g_pri + g_sec, group)
-        for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha,
-                                            branches=branches)):
-            p.grad = g
-    optimizer.step()
-    with torch.no_grad():
-        ema = [p for t in teachers for p in t.parameters()]
-        new = [p for s in students for p in s.parameters()]
-        torch._foreach_mul_(ema, ema_alpha)
-        torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
+    with span("train.backward"):
+        params = [p for s in students for p in s.parameters()]
+        optimizer.zero_grad(set_to_none=True)
+        if mld_alpha is None:
+            loss.backward()
+            PC.all_reduce_grads([p.grad for p in params], group)
+        else:
+            g_pri, g_sec = mld_gradients(*loss, params)
+            PC.all_reduce_grads(g_pri + g_sec, group)
+            for p, g in zip(params, mld_combine(g_pri, g_sec, mld_alpha,
+                                                branches=branches)):
+                p.grad = g
+    with span("train.update"):
+        optimizer.step()
+        with torch.no_grad():
+            ema = [p for t in teachers for p in t.parameters()]
+            new = [p for s in students for p in s.parameters()]
+            torch._foreach_mul_(ema, ema_alpha)
+            torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
 
 
 def loss_groups(pec, mtc, epc, fdc, cfg, branches=None):
@@ -220,65 +223,72 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
     docstring).
     """
     M = len(students)
-    sw_pos, sw_nega, _ = sample_weights(islabeled, pseudo_weight)
-    with torch.no_grad():
-        outs_ema = [_forward_views(t, views, cfg)[0] for t in teachers]
-    fwd = [_forward_views(s, views, cfg, remat=cfg.remat) for s in students]
-    outs = [p for p, _ in fwd]          # outs[m][a]: [B, S, K, H, W]
-    feats = [f for _, f in fwd]         # feats[m][a]: [B, N, C, hf, wf]
-    if use_epc:
-        teacher_outs = ensemble_targets(outs_ema, branches)
+    with span("train.forward"):
+        with torch.no_grad():
+            outs_ema = [_forward_views(t, views, cfg)[0] for t in teachers]
+        fwd = [_forward_views(s, views, cfg, remat=cfg.remat)
+               for s in students]
+        outs = [p for p, _ in fwd]      # outs[m][a]: [B, S, K, H, W]
+        feats = [f for _, f in fwd]     # feats[m][a]: [B, N, C, hf, wf]
+    with span("train.losses"):
+        sw_pos, sw_nega, _ = sample_weights(islabeled, pseudo_weight)
+        if use_epc:
+            teacher_outs = ensemble_targets(outs_ema, branches)
 
-    zero = torch.zeros((), device=islabeled.device)
-    sums = {k: [zero] * M for k in ("mtc", "mtc_n", "pec", "pec_n", "epc",
-                                    "epc_n")}
-    n_pseudo = n_sel = zero
+        zero = torch.zeros((), device=islabeled.device)
+        sums = {k: [zero] * M for k in ("mtc", "mtc_n", "pec", "pec_n",
+                                        "epc", "epc_n")}
+        n_pseudo = n_sel = zero
 
-    def add(key, m, s, n):
-        sums[key][m] = sums[key][m] + s
-        sums[key + "_n"][m] = sums[key + "_n"][m] + n
+        def add(key, m, s, n):
+            sums[key][m] = sums[key][m] + s
+            sums[key + "_n"][m] = sums[key + "_n"][m] + n
 
-    for a, v in enumerate(views):
-        for m in range(M):
-            add("mtc", m, *L.joint_dist(outs[m][a][:, -1],
-                                        outs_ema[m][a][:, -1]))
-            add("pec", m, *L.joint_mse(outs[m][a], v.heatmaps, v.gate, sw_pos,
-                                       use_gate=True, use_sample_weight=True))
-            if use_epc:
-                s, stats = L.joint_pseudo3(outs[m][a], teacher_outs[a],
-                                           sw_nega, cfg.pseudo_score_thr)
-                add("epc", m, s, stats.num_pseudo)
-                n_pseudo = n_pseudo + stats.num_pseudo
-                n_sel = n_sel + stats.num_selected
-    sums = {k: torch.stack(v) for k, v in sums.items()}
-    counts = global_counts({"mtc_n": sums["mtc_n"], "pec_n": sums["pec_n"],
-                            "epc_n": sums["epc_n"], "n_pseudo": n_pseudo,
-                            "n_sel": n_sel}, group)
-    mtc = _weighted(sums["mtc"], counts["mtc_n"], cons_weight)
-    pec = _weighted(sums["pec"], counts["pec_n"], cfg.pose_weight)
-    epc = (_weighted(sums["epc"], counts["epc_n"],
-                     cfg.ensemble_pseudo_weight)
-           if use_epc else torch.zeros_like(mtc))
+        for a, v in enumerate(views):
+            for m in range(M):
+                add("mtc", m, *L.joint_dist(outs[m][a][:, -1],
+                                            outs_ema[m][a][:, -1]))
+                add("pec", m, *L.joint_mse(outs[m][a], v.heatmaps, v.gate,
+                                           sw_pos, use_gate=True,
+                                           use_sample_weight=True))
+                if use_epc:
+                    s, stats = L.joint_pseudo3(outs[m][a], teacher_outs[a],
+                                               sw_nega, cfg.pseudo_score_thr)
+                    add("epc", m, s, stats.num_pseudo)
+                    n_pseudo = n_pseudo + stats.num_pseudo
+                    n_sel = n_sel + stats.num_selected
+        sums = {k: torch.stack(v) for k, v in sums.items()}
+        counts = global_counts({"mtc_n": sums["mtc_n"],
+                                "pec_n": sums["pec_n"],
+                                "epc_n": sums["epc_n"], "n_pseudo": n_pseudo,
+                                "n_sel": n_sel}, group)
+        mtc = _weighted(sums["mtc"], counts["mtc_n"], cons_weight)
+        pec = _weighted(sums["pec"], counts["pec_n"], cfg.pose_weight)
+        epc = (_weighted(sums["epc"], counts["epc_n"],
+                         cfg.ensemble_pseudo_weight)
+               if use_epc else torch.zeros_like(mtc))
 
-    fdc = fdc_count = zero
-    if use_fdc:
-        # between the two branches, per view, over the fdl_label samples
-        fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
-                    "all": torch.ones_like(sw_pos, dtype=torch.bool)
-                    }[cfg.fdl_label]
-        fa, fb = branch_features(feats, branches)
-        fdc, fdc_count = fdc_loss(fa, fb, fdl_mask, fdl_weight, cfg, group)
+        fdc = fdc_count = zero
+        if use_fdc:
+            # between the two branches, per view, over the fdl_label samples
+            fdl_mask = {"labeled": sw_pos > 0, "unlabeled": sw_pos == 0,
+                        "all": torch.ones_like(sw_pos, dtype=torch.bool)
+                        }[cfg.fdl_label]
+            fa, fb = branch_features(feats, branches)
+            fdc, fdc_count = fdc_loss(fa, fb, fdl_mask, fdl_weight, cfg,
+                                      group)
 
-    loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg, branches)
+        loss, mld_alpha = loss_groups(pec, mtc, epc, fdc, cfg, branches)
+        metrics = branch_metrics(global_metrics(
+            {"pec": pec.detach(), "pec_count": counts["pec_n"],
+             "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
+             "epc": epc.detach(), "epc_count": counts["epc_n"],
+             "fdc": fdc.detach(), "fdc_count": fdc_count,
+             "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]},
+            group), branches)
     optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
                      mld_alpha, group, branches)
-    return branch_metrics(global_metrics(
-        {"pec": pec.detach(), "pec_count": counts["pec_n"],
-         "mtc": mtc.detach(), "mtc_count": counts["mtc_n"],
-         "epc": epc.detach(), "epc_count": counts["epc_n"],
-         "fdc": fdc.detach(), "fdc_count": fdc_count,
-         "n_pseudo": counts["n_pseudo"], "n_sel": counts["n_sel"]}, group),
-        branches)
+    return metrics
 
 
 def mt_ubpl_step(students, teachers, optimizer, views, islabeled,
