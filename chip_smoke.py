@@ -464,13 +464,16 @@ def phase_train_mt_ubpl(counts):
 def phase_remat(tr, sched, plain_ms, plain_gb):
     """The same trainer with cfg.remat: the students' forwards are
     recomputed in the backward.  Its memory and step time beside the plain
-    step's (not part of the counted path)."""
+    step's (not part of the counted path).  The trainer's CUDA graph,
+    decided at set-up without ``remat``, is switched off for these steps:
+    they run eagerly."""
     import torch
     torch.cuda.synchronize()
     tr.optimizer.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr.cfg.remat = True
+    graphed, tr.step_graph.enabled = tr.step_graph.enabled, False
     step_ms = []
     for idxs in list(tr.make_sampler())[:4]:
         torch.cuda.synchronize()
@@ -481,6 +484,7 @@ def phase_remat(tr, sched, plain_ms, plain_gb):
         assert_finite("MT_UBPL metric with remat",
                       *(v.tolist() for v in m.values()))
     tr.cfg.remat = False
+    tr.step_graph.enabled = graphed
     emit({"phase": "train_mt_ubpl_remat", "steps": len(step_ms),
           "step_ms": step_ms,
           "steady_step_ms_median": statistics.median(step_ms[1:]),
@@ -1078,6 +1082,7 @@ def cli_mesh_phase(counts, phase, shape, axes):
     gradient is near 0 by up to lr either way.  Rank 0 traces epoch 1: the
     trace's heatmap kernels are its launches."""
     import functools
+    import gc
     import torch
     import ubpl_torch.train.base_trainer as BT
     from ubpl_torch.__main__ import main
@@ -1112,6 +1117,10 @@ def cli_mesh_phase(counts, phase, shape, axes):
             run_s = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"main returned {rc}")
+            # the in-process run's cached blocks, its CUDA graph's pool
+            # among them, go back before the ranks share the card
+            gc.collect()
+            torch.cuda.empty_cache()
             base = cli_run_dir(exp)
             logs = []
             for e in (1, 2):

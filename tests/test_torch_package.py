@@ -57,7 +57,8 @@ NEW_MODULES = ["__main__", "bench", "data.arrays", "data.base", "data.cifar",
                "ops.features", "ops.uncertainty", "train.classification",
                "train.dualpose_ubpl", "train.exec", "train.feature_pool",
                "train.mld_optim", "train.pseudo", "train.pseudo_loop",
-               "train.streaming", "utils.comm", "utils.draw",
+               "train.step_graph", "train.streaming", "utils.comm",
+               "utils.draw",
                "utils.preemption", "utils.profiling", "utils.report",
                "utils.xlsx"]
 

@@ -30,9 +30,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def autocast(device: torch.device, compute_dtype: str):
-    """bf16 autocast on CUDA for ``compute_dtype="bfloat16"``, else fp32."""
+    """bf16 autocast on CUDA for ``compute_dtype="bfloat16"``, else fp32.
+    While a CUDA graph captures (``train/step_graph.py``), autocast keeps
+    no cache of cast weights, as CUDA graphs require: each forward casts
+    each weight once either way."""
     if device.type == "cuda" and compute_dtype == "bfloat16":
-        return torch.autocast("cuda", dtype=torch.bfloat16)
+        return torch.autocast(
+            "cuda", dtype=torch.bfloat16,
+            cache_enabled=not torch.cuda.is_current_stream_capturing())
     return contextlib.nullcontext()
 
 

@@ -84,6 +84,7 @@ from .checkpointing import restore_checkpoint, save_checkpoint
 from .common import (make_view, pck_heads, predict_heads_batch, put_dataset,
                      sample_weights, update_pck_counters)
 from .pseudo_loop import PseudoLabelingLoop, round_draws
+from .step_graph import StepGraph, engages as graph_engages
 from .streaming import BatchStreamer, StreamedBatch, host_dataset
 
 _NETWORK_KEY = re.compile(r"model(\d*)(_ema)?_state")
@@ -123,6 +124,8 @@ class BaseTrainer:
     supports_mld = False
     #: the stacked branch axis that a ``model`` mesh axis splits (1: none)
     n_models = 1
+    #: the regime's step after the views goes through ``step_graph``
+    graphs_step = False
 
     def __init__(self, cfg: Config, device=None, logger=None, mesh=None):
         if cfg.optimizer not in ("adamw", "mld"):
@@ -153,6 +156,11 @@ class BaseTrainer:
         self.branches = PC.branch_group(mesh, self.device, self.n_models)
         self.world = PC.world_group(mesh, self.device)
         self.rank = self.world.rank if self.world else 0
+        #: replays the step after the views as one CUDA graph where that
+        #: step's work stays on one card (``train/step_graph.py``)
+        self.step_graph = StepGraph(self.device, enabled=(
+            self.graphs_step and graph_engages(self.device, self.group,
+                                               self.branches, cfg)))
         self.logger = logger or Logger(f"{cfg.data_source}_{self.regime}")
         if not PC.is_writer():      # data parallel: rank 0 alone logs
             self.logger = Logger(self.logger.experiment, console_level=None)
@@ -252,7 +260,12 @@ class BaseTrainer:
         completes the batch everywhere."""
         idxs = np.asarray(idxs, np.int64)
         if self.group is None:
-            i = torch.as_tensor(idxs, device=self.device)
+            i = torch.from_numpy(idxs)
+            if self.device.type == "cuda":
+                # through pinned memory: a pageable copy would make the host
+                # wait for the card (the caching host allocator keeps the
+                # block until the copy is done)
+                i = i.pin_memory().to(self.device, non_blocking=True)
             return [getattr(data, f)[i] for f in fields]
         local = idxs - data.offset
         own = (local >= 0) & (local < data.images.shape[0])
@@ -374,10 +387,12 @@ class BaseTrainer:
             tag = "" if n == 1 else str(i + 1)
             self.networks[f"model{tag}_state"] = s
             self.networks[f"model{tag}_ema_state"] = t
-        # wd passed explicitly: Config's is 0.0, torch's AdamW default 0.01
+        # wd passed explicitly: Config's is 0.0, torch's AdamW default 0.01;
+        # a CUDA graph replays a capturable AdamW, fused: a few kernels
+        graphed = self.step_graph.enabled
         self.optimizer = torch.optim.AdamW(
             [p for s in self.students for p in s.parameters()], lr=cfg.lr,
-            weight_decay=cfg.wd)
+            weight_decay=cfg.wd, capturable=graphed, fused=graphed or None)
 
     def _setup_model(self):
         """Build the networks and ``self.optimizer``, and name the networks
@@ -400,11 +415,34 @@ class BaseTrainer:
             if not ema and tag in ("", "1"):
                 meta = m
         self.optimizer.state.clear()
+        self.step_graph.reset()
         return meta
 
     # ------------------------------------------------------------- step exec
     def train_step(self, idxs, *sched_args):
         raise NotImplementedError
+
+    @property
+    def param_dtype(self):
+        """The students' parameters' dtype: the graphed step's schedule
+        has it, so a float64 run weighs its losses by doubles."""
+        return next(self.students[0].parameters()).dtype
+
+    @property
+    def graph_captures(self):
+        """CUDA graphs captured of the step after the views (always on)."""
+        return self.step_graph.graph_captures
+
+    @property
+    def graph_replays(self):
+        """Steps replayed from a CUDA graph, the capturing steps included."""
+        return self.step_graph.graph_replays
+
+    @property
+    def eager_steps(self):
+        """Steps of a ``graphs_step`` regime run eagerly: every one where
+        the graph does not engage, else the first at each input shape."""
+        return self.step_graph.eager_steps
 
     def run_train_steps(self, batch_iter, *sched_args):
         """Drive batches through ``train_step`` (with ``stream_data``, each
@@ -566,6 +604,17 @@ class BaseTrainer:
                                                             * n_par)))
                                  for g in optim["param_groups"]]}
 
+    def _load_optimizer_state(self, optim):
+        """Load a checkpoint's optimiser state, keeping this AdamW's own
+        ``capturable`` and ``fused`` (the checkpoint carries its writer's:
+        a graphed trainer's, or an eager one's); torch then puts each
+        ``step`` where this AdamW keeps it, on the card for a graphed
+        trainer, as its writer left it (on the host) otherwise."""
+        own = self.optimizer.param_groups
+        self.optimizer.load_state_dict(dict(optim, param_groups=[
+            dict(g, **{k: o[k] for k in ("capturable", "fused") if k in o})
+            for g, o in zip(optim["param_groups"], own)]))
+
     def save(self, base_path, epo, is_best):
         """Write the checkpoint of epoch ``epo`` (rank 0 writes; every rank
         takes part in gathering the pseudo-round state and, branch
@@ -588,8 +637,9 @@ class BaseTrainer:
             return 0
         for key, net in self.networks.items():
             net.load_state_dict(port_state_from_reference(state[key]))
-        self.optimizer.load_state_dict(
+        self._load_optimizer_state(
             self._local_optimizer_state(state["optim_state"]))
+        self.step_graph.reset()
         self.best_acc = [float(a) for a in
                          np.atleast_1d(meta.get("best_acc", self.best_acc))]
         self.best_epoch = [int(e) for e in np.atleast_1d(

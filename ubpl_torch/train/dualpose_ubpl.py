@@ -107,8 +107,9 @@ def dualpose_step(students, teachers, optimizer, stu_view, ema_view,
 
 class DualPoseUBPLTrainer(MTUBPLTrainer):
     """MT_UBPL's branches, schedules, epoch loop and three-head validation
-    with the DualPose step."""
+    with the DualPose step (eager: its own step takes no graph)."""
     regime = "DualPose_UBPL"
+    graphs_step = False
 
     def view_options(self, i):
         """The students' view (0) from the configured ranges, the

@@ -30,12 +30,17 @@ class MeanTeacherTrainer(BaseTrainer):
     regime = "MT"
     valid_heads = ("student", "teacher")
     n_views = 2  # brNum * br_augNum (projects/MT.py:59)
+    graphs_step = True
 
     def _setup_model(self):
         self._setup_branches(1)
 
     def train_step(self, idxs, cons_weight, ema_alpha):
         views, islabeled = self.make_views(idxs, self.n_views)
+        return self.step_graph(self.step_after_views, views, islabeled,
+                               (cons_weight,), ema_alpha, self.param_dtype)
+
+    def step_after_views(self, views, islabeled, cons_weight, ema_alpha):
         return mean_teacher_step(self.students[0], self.teachers[0],
                                  self.optimizer, views, islabeled,
                                  cons_weight, ema_alpha, self.cfg,

@@ -144,7 +144,11 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
     ``group`` the gradients (both pullbacks for MLD, whose norms and inner
     product are over the global gradients) are summed over the ranks
     before they are used; with ``branches`` MLD's norms and inner product
-    are summed over every branch's students."""
+    are summed over every branch's students.
+
+    ``ema_alpha`` is a float, or in a CUDA graph (``train/step_graph.py``)
+    the pair of 0-dim device tensors (rate, 1 - rate): the same arithmetic,
+    ``addcmul`` rounding as ``add`` with ``alpha`` does."""
     with span("train.backward"):
         params = [p for s in students for p in s.parameters()]
         optimizer.zero_grad(set_to_none=True)
@@ -162,8 +166,17 @@ def optimize_and_ema(students, teachers, optimizer, loss, ema_alpha,
         with torch.no_grad():
             ema = [p for t in teachers for p in t.parameters()]
             new = [p for s in students for p in s.parameters()]
-            torch._foreach_mul_(ema, ema_alpha)
-            torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
+            if isinstance(ema_alpha, tuple):
+                # over the parameters laid end to end: a few kernels in
+                # place of one per parameter
+                alpha, rest = ema_alpha
+                flat = torch.cat([p.reshape(-1) for p in ema]).mul_(alpha)
+                flat.addcmul_(torch.cat([p.reshape(-1) for p in new]), rest)
+                torch._foreach_copy_(ema, [f.view_as(p) for f, p in zip(
+                    flat.split([p.numel() for p in ema]), ema)])
+            else:
+                torch._foreach_mul_(ema, ema_alpha)
+                torch._foreach_add_(ema, new, alpha=1.0 - ema_alpha)
 
 
 def loss_groups(pec, mtc, epc, fdc, cfg, branches=None):
@@ -220,7 +233,9 @@ def teacher_student_step(students, teachers, optimizer, views, islabeled,
     metrics; the per-branch ones have shape [M].  ``group``: the ranks
     that split the batch; ``branches``: the ranks that split the branches,
     ``students`` and ``teachers`` being this rank's (see the module
-    docstring).
+    docstring).  The schedule's values (``cons_weight`` to ``ema_alpha``)
+    are floats, or 0-dim device tensors where a CUDA graph replays the
+    step (``optimize_and_ema``).
     """
     M = len(students)
     with span("train.forward"):
@@ -309,6 +324,7 @@ class MTUBPLTrainer(BaseTrainer):
     n_models = 2
     supports_pseudo_loop = True     # cfg.pseudo_rounds > 0: UBPL rounds
     supports_mld = True             # primary PEC, secondary MTC+EPC+2*FDC
+    graphs_step = True
 
     @property
     def n_views(self):
@@ -320,6 +336,12 @@ class MTUBPLTrainer(BaseTrainer):
     def train_step(self, idxs, cons_weight, fdl_weight, pseudo_weight,
                    ema_alpha):
         views, islabeled = self.make_views(idxs, self.n_views)
+        return self.step_graph(self.step_after_views, views, islabeled,
+                               (cons_weight, fdl_weight, pseudo_weight),
+                               ema_alpha, self.param_dtype)
+
+    def step_after_views(self, views, islabeled, cons_weight, fdl_weight,
+                         pseudo_weight, ema_alpha):
         return mt_ubpl_step(self.students, self.teachers, self.optimizer,
                             views, islabeled, cons_weight, fdl_weight,
                             pseudo_weight, ema_alpha, self.cfg, self.group,
