@@ -19,10 +19,14 @@ comes from.  A training cell needs no timed window; a serving cell runs a
 to compare.  Faults (``FAULTS``): a training step on every other row of
 its batch (half the batch left out, the losses the mean over the rest);
 heatmap targets zeroed, or moved by one map cell, where the kernel writes
-them; a loss term (EPC, FDC) left out of the step; a serving answer moved
+them; a loss term (EPC, FDC) left out of the step; a step that leaves the
+state unchanged; the gradients' sum over the ranks that split the batch
+left out (each rank steps on its own rows' share); a serving answer moved
 by one map cell where it is produced.  A step that leaves the state
 unchanged reads 1 on ``change_gap`` by construction, and a term left out
-1 on its ``<term>_gap`` (``tests/test_bench_faults.py`` runs both).
+1 on its ``<term>_gap`` (``tests/test_bench_faults.py`` runs both).  A
+program whose ranks run in processes of their own plants the fault in
+each of them (its ``Program.fault``).
 """
 import argparse
 import contextlib
@@ -90,6 +94,22 @@ def fdc_left_out():
     return patched(mt_ubpl, "fdc_loss", wrap)
 
 
+def state_unchanged(_):
+    """AdamW's step leaves the parameters as they were."""
+    import torch
+    return patched(torch.optim.AdamW, "step",
+                   lambda step: lambda self, *args, **kwargs: None)
+
+
+def exchange_left_out():
+    """The gradients are not summed over the ranks that split the
+    batch."""
+    from ubpl_torch.parallel import collectives
+
+    return patched(collectives, "all_reduce_grads",
+                   lambda reduce: lambda grads, group: grads)
+
+
 def moved_answers():
     """Every served x moved by one map cell where it is produced."""
     from ubpl_torch.infer import PoseEstimator
@@ -111,6 +131,8 @@ FAULTS = {
                       lambda _: heatmaps(lambda h: h.roll(1, dims=-1))),
     "epc_left_out": ("train_pose", lambda _: epc_left_out()),
     "fdc_left_out": ("train_pose", lambda _: fdc_left_out()),
+    "state_unchanged": ("train", state_unchanged),
+    "exchange_left_out": ("train_pose_mesh", lambda _: exchange_left_out()),
     "moved_answer": ("serve_clips", lambda _: moved_answers()),
 }
 
@@ -122,7 +144,10 @@ def plant(cell, fault):
     kind, make = FAULTS[fault]
     if not cell.traffic["runner"].startswith(kind):
         raise ValueError(f"{fault} does not apply to {cell.name}")
-    return make(cell.runner().Program)
+    program = cell.runner().Program
+    if hasattr(program, "fault"):       # planted in the program's ranks
+        return patched(program, "fault", lambda _: fault)
+    return make(program)
 
 
 def named(prog, ref):
@@ -130,8 +155,10 @@ def named(prog, ref):
     it: each step's loss gap and the smallest reference gradients as
     shares of the median leaf's."""
     import statistics
-    from benchmark.runners.training import readings_gaps
-    rows = {n: list(v) for n, v in readings_gaps(prog, ref).items()}
+    from benchmark.runners.training import worst_gaps
+    rows = {n: list(v) for n, v in worst_gaps(prog, ref).items()}
+    if isinstance(prog, list):          # one per rank: rank 0's look
+        prog = prog[0]
     med = statistics.median(ref.first_grads.values())
     rows["step_loss_gaps"] = [abs(p - r) / abs(r) for p, r in
                               zip(prog.losses, ref.losses)]
@@ -148,6 +175,9 @@ def readings(cell, seed, device, seconds, control, fault=None,
     from benchmark.runners import serve_clips
     from benchmark.runners.training import float32_matmuls
     if witness:
+        if hasattr(cell.runner().Program, "fault"):
+            raise ValueError("the witness turns TF32 off in this process, "
+                             "not in the program's ranks")
         cell = copy.copy(cell)
         cell.config = dict(cell.config, compute_dtype="float32")
     runner = cell.runner()

@@ -22,6 +22,13 @@ keeps: an object with ``kernel_bytes`` (bytes per launch of the hand
 kernels on the path) and ``check()``, which runs the reference and
 returns ``[(name, value, limit, what)]``, each value passing at or under
 its limit.
+
+A program whose ranks run in processes of their own (one per card) also
+defines ``profile(units)``, which returns the ``TraceSummary`` of rank 0's
+profiled stretch (its ``busy_s`` the mean over the ranks' cards), and
+``memory_peak_bytes()``, the fullest rank's peak; it has synchronised its
+cards when its construction returns, and this process leaves the cards to
+it until the check.
 """
 import importlib
 import importlib.util
@@ -145,12 +152,18 @@ def run(cell, seed, seconds, trace, device, t_start):
             torch.cuda.synchronize(device)
 
     prog = cell.runner().Program(cell, seed, device)
-    sync()
+    in_ranks = hasattr(prog, "profile")
+    if not in_ranks:
+        sync()
     setup_s = time.perf_counter() - t_start
     win = prog.window(seconds)
-    summary = (T.profile(prog.stretch, prog.stretch_units)
-               if trace and on_card else None)
-    memory = torch.cuda.max_memory_allocated(device) if on_card else 0
+    profile = prog.profile if in_ranks else (
+        lambda units: T.profile(prog.stretch, units))
+    summary = profile(prog.stretch_units) if trace and on_card else None
+    if in_ranks:
+        memory = prog.memory_peak_bytes()
+    else:
+        memory = torch.cuda.max_memory_allocated(device) if on_card else 0
     kept = prog.release()
     del prog
     if on_card:

@@ -1,5 +1,6 @@
-"""Plain PyTorch reference networks: the Newell stacked hourglass and the
-CIFAR ResNet18 with two heads and a feature tap.
+"""Plain PyTorch reference layers and networks: the Newell stacked
+hourglass and the CIFAR ResNet18 with two heads and a feature tap, both
+declared in ``NETWORKS`` (``registry``).
 
 Written from the published architectures (Newell et al. 2016, "Stacked
 Hourglass Networks"; He et al. 2016, "Deep Residual Learning") as the
@@ -21,6 +22,8 @@ float32.
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .registry import Network, lookup
 
 E4M3_MAX, E5M2_MAX = 448.0, 57344.0
 
@@ -72,6 +75,21 @@ class Conv(Module):
                                  self.bias, self.stride, self.padding))
 
 
+class ConvTranspose(Module):
+    """A 2-d transposed convolution; weight [in, out, k, k]."""
+
+    def __init__(self, inp, out, k, stride=1, padding=0, bias=True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(inp, out, k, k))
+        self.bias = nn.Parameter(torch.empty(out)) if bias else None
+
+    def forward(self, x):
+        return self.rnd(F.conv_transpose2d(
+            self.rnd(x), self.rnd(self.weight), self.bias, self.stride,
+            self.padding))
+
+
 class Linear(Module):
     def __init__(self, inp, out):
         super().__init__()
@@ -98,6 +116,23 @@ class BN(Module):
         return self.rnd(F.batch_norm(x, self.running_mean, self.running_var,
                                      self.weight, self.bias, False, 0.0,
                                      1e-5))
+
+
+#: layers with a weight: their flops are counted from it
+WEIGHTED = (Conv, ConvTranspose, Linear)
+
+
+def drawn_layers(model):
+    """[(name, shape, fan_in)] of every weight and bias of the weighted
+    layers, fan_in the elements of one output's weight (PyTorch's default
+    initialisation of each)."""
+    out = []
+    for mname, m in model.named_modules():
+        if isinstance(m, WEIGHTED):
+            fan_in = m.weight[0].numel()
+            for pname, p in m.named_parameters(recurse=False):
+                out.append((f"{mname}.{pname}", p.shape, fan_in))
+    return out
 
 
 def set_precision(model, precision):
@@ -261,10 +296,13 @@ class ResNet18(Module):
         return (self.fc1(x), self.fc2(x)), feat
 
 
+NETWORKS = [
+    Network("HG", lambda arch, k: StackedHourglass(k, int(arch[2:]))),
+    Network("ResNet18", lambda arch, classes: ResNet18(classes), exact=True,
+            off_loss_path=("fc2",)),
+]
+
+
 def build(arch, classes_or_kps):
-    """``arch``: "HG<n>" or "ResNet18"."""
-    if arch.startswith("HG"):
-        return StackedHourglass(classes_or_kps, int(arch[2:]))
-    if arch == "ResNet18":
-        return ResNet18(classes_or_kps)
-    raise ValueError(f"no reference network {arch!r}")
+    """The reference network ``arch`` (any name ``registry`` finds)."""
+    return lookup(arch).build(arch, classes_or_kps)

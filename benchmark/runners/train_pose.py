@@ -11,8 +11,9 @@ with ``labeled_share`` of them labelled, the step's ``schedule``
 ``trace_steps`` (the profiled stretch).
 
 Set-up: the trainer is built, then handed the benchmark's inputs, all
-made on the card from the seed: the dataset, each branch's weights (its
-teacher starts as a copy), the batch order, and the seed of the trainer's
+made on the card from the seed: the dataset (on a mesh, this rank's shard
+of it), each branch's weights (its teacher starts as a copy; on a mesh,
+this rank's branches), the batch order, and the seed of the trainer's
 augmentation generator.  The first ``check_steps`` steps warm every shape
 the window uses, and their readings are kept for the check
 (``training.TrainProgram``), with the heatmap targets that the step's
@@ -70,8 +71,7 @@ def make_dataset(cell, seed, device):
 
 
 class Program(TrainProgram):
-    def __init__(self, cell, seed, device):
-        from ubpl_torch.train.common import DeviceDataset
+    def __init__(self, cell, seed, device, mesh=None):
         from ubpl_torch.train.mt_ubpl import MTUBPLTrainer
         from ubpl_torch.utils import Logger
         c, t = cell.config, cell.traffic
@@ -82,20 +82,19 @@ class Program(TrainProgram):
             "cons_weight", "fdl_weight", "pseudo_weight", "ema_alpha"))
         self.trainer = tr = MTUBPLTrainer(
             program_config(cell, s_prog), device=device,
-            logger=Logger("benchmark", console_level=None))
+            logger=Logger("benchmark", console_level=None), mesh=mesh)
         if tr.n_views != t["views"]:
             raise ValueError(f"the trainer builds {tr.n_views} views, the "
                              f"traffic asks for {t['views']}")
-        images, kps, islabeled, n_lab = make_dataset(cell, s_data, device)
-        means = torch.tensor(c["means"], dtype=torch.float32, device=device)
-        n = images.shape[0]
-        tr.train_data = DeviceDataset(images, kps, kps.clone(), islabeled,
-                                      means, 0, n)
-        tr.means = means
+        tr.train_data, n_lab = self._dataset(s_data, device)
+        n = tr.train_data.total
+        tr.means = tr.train_data.means
         tr.labeled_idxs = list(range(n_lab))
         tr.unlabeled_idxs = list(range(n_lab, n))
-        self.states = W.make_states(c["model"], c["kps"], len(tr.students),
-                                    s_weights, device)
+        states = W.make_states(c["model"], c["kps"], tr.n_models, s_weights,
+                               device)
+        #: the initial states of this rank's branches
+        self.states = [states[i] for i in tr.branch_ids(tr.n_models)]
         for s, te, sd in zip(tr.students, tr.teachers, self.states):
             s.load_state_dict(sd)
             te.load_state_dict(sd)
@@ -105,8 +104,23 @@ class Program(TrainProgram):
                                    t["batch_labeled"], s_order)
         self.flops_per_step = flops.teacher_student_step_flops(
             c["model"], c["kps"], c["inp_res"], self.bs, t["views"],
-            len(tr.students), len(tr.teachers))
+            tr.n_models, tr.n_models)
         self._check_steps()
+
+    def _dataset(self, seed, device):
+        """The dataset rows this rank holds (all of them on one card), and
+        the count of labelled rows."""
+        from ubpl_torch.train.common import DeviceDataset
+        images, kps, islabeled, n_lab = make_dataset(self.cell, seed, device)
+        means = torch.tensor(self.cell.config["means"], dtype=torch.float32,
+                             device=device)
+        n = images.shape[0]
+        rows = self.trainer.local_rows(n)
+        if rows != slice(0, n):
+            images, kps, islabeled = (images[rows].clone(), kps[rows].clone(),
+                                      islabeled[rows].clone())
+        return DeviceDataset(images, kps, kps.clone(), islabeled, means,
+                             rows.start, n), n_lab
 
     def _step(self, batch):
         return self.trainer.run_train_steps([batch], *self.sched_args)[0]

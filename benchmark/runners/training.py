@@ -238,9 +238,20 @@ def readings_gaps(prog, ref):
     return out
 
 
+def worst_gaps(progs, ref):
+    """``readings_gaps`` of each of ``progs`` (a program's readings, or
+    one per rank of a program that spans ranks), the worst per number."""
+    out = {}
+    for i, prog in enumerate(progs if isinstance(progs, list) else [progs]):
+        for k, (v, what) in readings_gaps(prog, ref).items():
+            if k not in out or v > out[k][0]:
+                out[k] = (v, what if i == 0 else f"{what}, rank {i}")
+    return out
+
+
 def numbers(prog, ref, limits):
     """[(name, value, limit, what)] of the numbers that ``limits`` names,
-    from a program's (or a control's) readings ``prog`` against the
-    reference's ``ref``."""
-    gaps = readings_gaps(prog, ref)
+    from a program's (or a control's) readings ``prog``, or a list of
+    them, one per rank, against the reference's ``ref``."""
+    gaps = worst_gaps(prog, ref)
     return [(k, gaps[k][0], lim, gaps[k][1]) for k, lim in limits.items()]

@@ -1,7 +1,7 @@
 """The harness, with its look for a card skipped, run over a program
 broken underneath: each fault that a cell can have turns ``correct``
-false.  (No cell spans several cards, so the exchange between cards has
-no fault to plant here.)"""
+false.  The cell that spans cards runs its gloo ranks on the CPU, each
+with the fault planted."""
 import pytest
 import torch
 
@@ -10,6 +10,7 @@ from benchmark.tests.conftest import tiny_cell
 
 CPU = torch.device("cpu")
 TRAIN = ["train-mt_ubpl-hg3", "train-mt_ubpl-resnet18"]
+MESH = "train-mt_ubpl-hg3-model2-data2"
 
 
 def run(cell, fault=None):
@@ -44,6 +45,15 @@ def test_pose_step_fault(fault, number):
     assert checks[number][0] > checks[number][1]
     if fault == "fdc_left_out":
         assert checks[number][0] == 1.0
+
+
+@pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
+                                   "exchange_left_out"])
+def test_fault_on_every_rank(fault):
+    correct, checks = run(tiny_cell(MESH), fault)
+    assert not correct
+    if fault == "state_unchanged":
+        assert checks["change_gap"][0] == 1.0
 
 
 def test_answer_altered_where_it_is_produced():

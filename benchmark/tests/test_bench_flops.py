@@ -37,6 +37,20 @@ def test_step_flops_equal_the_counter(name):
     assert counted(lambda: prog._step(batch)) == prog.flops_per_step
 
 
+def test_mesh_step_flops_equal_the_one_card_step_at_the_same_batch():
+    one = tiny_cell("train-mt_ubpl-hg3")
+    mesh = tiny_cell("train-mt_ubpl-hg3-model2-data2")
+    bs = ("batch_unlabeled", "batch_labeled", "views")
+    assert [one.traffic[k] for k in bs] == [mesh.traffic[k] for k in bs]
+    cpu = torch.device("cpu")
+    ranks = mesh.runner().Program(mesh, 5, cpu)
+    win = ranks.window(0.0)
+    ranks.release()
+    assert win.units >= 1
+    assert win.flops / win.units == \
+        one.runner().Program(one, 5, cpu).flops_per_step
+
+
 def test_mt_ubpl_step_counts_sixteen_forwards_per_image_and_view_pair():
     fwd = flops.forward_flops("HG3", 9, 256)
     step = flops.teacher_student_step_flops("HG3", 9, 256, 32, 2, 2, 2)

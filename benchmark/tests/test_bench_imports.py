@@ -42,7 +42,9 @@ def test_no_jax(path):
 def test_reference_stands_alone(path):
     names = top_level_imports(path)
     assert not names & (JAX | {"ubpl_torch", "benchmark"})
-    assert names <= {"torch", "numpy", "math", "typing"}
+    # and the standard library's module finding for the registry
+    assert names <= {"torch", "numpy", "math", "typing", "dataclasses",
+                     "importlib", "pkgutil"}
 
 
 def test_names_compared_whole():

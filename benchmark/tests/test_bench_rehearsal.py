@@ -8,9 +8,9 @@ import torch
 
 from benchmark import harness
 from benchmark.runners.training import readings_gaps
-from benchmark.tests.conftest import tiny_cell
+from benchmark.tests.conftest import cells, tiny, tiny_cell
 
-CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
+CELLS = cells()
 CPU = torch.device("cpu")
 
 
@@ -73,3 +73,12 @@ def test_same_seed_same_inputs():
     assert a.readings.losses == b.readings.losses
     assert [list(x) for x in a.check_batches] == [list(x) for x in
                                                   b.check_batches]
+
+
+@pytest.mark.parametrize("part", ["config", "traffic"])
+def test_a_cell_without_a_tiny_cut_fails_at_once(part):
+    cell = harness.Cell("train-mt_ubpl-hg3")
+    del getattr(cell, part)["tiny"]
+    what = "configuration" if part == "config" else "traffic"
+    with pytest.raises(ValueError, match=f'its {what} has no "tiny"'):
+        tiny(cell)

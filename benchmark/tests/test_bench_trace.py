@@ -116,3 +116,18 @@ def test_peaks_table():
     assert harness.peaks("NVIDIA H100 80GB HBM3", "bfloat16") == (
         989.4e12, 3.35e12)
     assert harness.peaks("some other card", "bfloat16") == (None, None)
+
+
+def test_collective_readers():
+    ev = EVENTS + [
+        Event("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 2000, 300,
+              device=True),
+        Event("ncclDevKernel_AllGather_RING_LL", 2400, 100, device=True)]
+    m = measured(trace.summarize(ev, units=2, wall=4e-6))
+    assert harness.reader("parallel.collectives_per_step")(m) == 1
+    assert harness.reader("parallel.collective_ms_per_step")(m) == \
+        pytest.approx(400e-9 / 2 * 1e3)
+    # one card: no NCCL kernel, nothing reported
+    m = measured(trace.summarize(EVENTS, units=2, wall=4e-6))
+    assert harness.reader("parallel.collectives_per_step")(m) is None
+    assert harness.reader("parallel.collective_ms_per_step")(m) is None

@@ -1,25 +1,16 @@
 """Network weights made on the device from a seed, in one draw.
 
-Every convolution and linear weight and bias is uniform on
-+-1/sqrt(fan_in) (PyTorch's default initialisation of both); BatchNorm
-starts at weight 1, bias 0, running mean 0 and variance 1.  Names and
-shapes come from the reference network (``reference.nets``), whose keys
-are the program's, so one state dict loads into both.
+The tensors that the network's ``registry`` entry draws (by default every
+convolution and linear weight and bias) are uniform on +-1/sqrt(fan_in)
+(PyTorch's default initialisation); every other tensor of the state
+starts at 1 where its name ends in "weight" or "running_var", else at 0
+(BatchNorm's and LayerNorm's starts).  Names and shapes come from the
+reference network (``reference.nets``), whose keys are the program's, so
+one state dict loads into both.
 """
 import torch
 
-from .reference import nets
-
-
-def _drawn(model):
-    """[(name, shape, fan_in)] of every tensor drawn at random."""
-    out = []
-    for mname, m in model.named_modules():
-        if isinstance(m, (nets.Conv, nets.Linear)):
-            fan_in = m.weight[0].numel()
-            for pname, p in m.named_parameters(recurse=False):
-                out.append((f"{mname}.{pname}", p.shape, fan_in))
-    return out
+from .reference import nets, registry
 
 
 def make_states(arch, classes_or_kps, copies, seed, device):
@@ -28,7 +19,7 @@ def make_states(arch, classes_or_kps, copies, seed, device):
     ``seed``."""
     with torch.device("meta"):
         model = nets.build(arch, classes_or_kps)
-    drawn = _drawn(model)
+    drawn = (registry.lookup(arch).drawn or nets.drawn_layers)(model)
     sizes = [s.numel() for _, s, _ in drawn]
     g = torch.Generator(device=device)
     g.manual_seed(seed)
