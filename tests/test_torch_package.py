@@ -53,7 +53,7 @@ NEW_MODULES = ["__main__", "bench", "data.arrays", "data.base", "data.cifar",
                "data.sources", "models.classification",
                "models.classification.mobilenet",
                "models.classification.resnet", "models.classification.vgg",
-               "models.init_strategies", "models.litepose",
+               "models.init_strategies", "models.litepose", "models.vitpose",
                "ops.features", "ops.uncertainty", "train.classification",
                "train.dualpose_ubpl", "train.exec", "train.feature_pool",
                "train.mld_optim", "train.pseudo", "train.pseudo_loop",

@@ -26,7 +26,8 @@ from .parallel.mesh import parse_axis_spec
 @dataclass
 class Config:
     # Model
-    model: str = "HG3"                  # HG{n} | LitePose; classification:
+    model: str = "HG3"                  # HG{n} | LitePose | ViTPose-B/L/H;
+                                        # classification:
                                         # VGG* | ResNet* | MobileNet
     feature_mode: str = "AvgPool"       # default | MaxPool | AvgPool | ConvOne
     br_num: int = 2

@@ -179,6 +179,9 @@ class BaseTrainer:
         self.best_epoch = [0] * n
         self.epoch = 0
         self._step_num = 0
+        #: tokens through transformer blocks, and drop-path mask sets made,
+        #: over the teacher-student steps taken (``count_backbone``)
+        self.backbone_tokens = self.drop_path_draws = 0
         self._pseudo_loop = None
         self._pseudo_rounds_done = 0
 
@@ -342,16 +345,16 @@ class BaseTrainer:
 
     # ----------------------------------------------------------------- model
     def _make_model(self, seed=None):
-        """One network, initialised on the CPU from ``seed`` (cfg.seed by
-        default), in the device's activation layout.  Data parallel, its
-        BatchNorms use the global batch's statistics, and the batch group's
-        first rank's weights are broadcast once (every rank drew the same
-        ones: a guard)."""
+        """One network, initialised from ``seed`` (cfg.seed by default) on
+        the CPU (a ViTPose on the trainer's device), in the device's
+        activation layout.  Data parallel, its BatchNorms use the global
+        batch's statistics, and the batch group's first rank's weights are
+        broadcast once (every rank drew the same ones: a guard)."""
         cfg = self.cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed if seed is None else seed)
             model = create_pose_model(cfg.model, cfg.kps_count,
-                                      cfg.feature_mode)
+                                      cfg.feature_mode, self.device)
         model = model.to(self.device,
                          memory_format=memory_format(self.device))
         with torch.no_grad():
@@ -443,6 +446,21 @@ class BaseTrainer:
         """Steps of a ``graphs_step`` regime run eagerly: every one where
         the graph does not engage, else the first at each input shape."""
         return self.step_graph.eager_steps
+
+    def count_backbone(self, views):
+        """Add one teacher-student step to ``backbone_tokens`` and
+        ``drop_path_draws``, from its views' shapes (no sync): each student
+        and teacher runs every view, one forward per view or one for the
+        views folded together, and a transformer (``tokens``) with drop
+        path makes one mask set per forward.  Networks without blocks add
+        nothing."""
+        n, _, h, w = views[0].images.shape
+        calls = 1 if self.cfg.fold_views else len(views)
+        for net in (*self.students, *self.teachers):
+            if hasattr(net, "tokens"):
+                self.backbone_tokens += len(views) * n * net.tokens(h, w)
+                if net.drop_path_rate > 0:
+                    self.drop_path_draws += calls
 
     def run_train_steps(self, batch_iter, *sched_args):
         """Drive batches through ``train_step`` (with ``stream_data``, each

@@ -336,6 +336,7 @@ class MTUBPLTrainer(BaseTrainer):
     def train_step(self, idxs, cons_weight, fdl_weight, pseudo_weight,
                    ema_alpha):
         views, islabeled = self.make_views(idxs, self.n_views)
+        self.count_backbone(views)
         return self.step_graph(self.step_after_views, views, islabeled,
                                (cons_weight, fdl_weight, pseudo_weight),
                                ema_alpha, self.param_dtype)

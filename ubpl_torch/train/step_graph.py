@@ -20,6 +20,9 @@ device tensor of the students' dtype that the step reads
 (``with_schedule``), uploaded through pinned memory when it changes, so an
 epoch's new values need no new capture.  Each replay's metrics are cloned
 out of the graph's buffers: every step returns its own values.
+``torch.cuda.graph`` releases the allocator's cached blocks before it
+captures, so the warm-up's freed activations do not sit beside the graph's
+private pool (ViTPose-H's step would need most of the card twice over).
 
 Whether the graph engages (``engages``: a CUDA card, one process, AdamW,
 no ``remat``) is decided once, when the trainer is built; off
