@@ -252,6 +252,171 @@ def phase_kernel_heatmap():
     return rec
 
 
+def hg3_batch_norm_calls():
+    """(C, H, conv bias?) of each train-mode BatchNorm of an HG3 forward at
+    256 px, in order (139: ``pre`` 10, each stack 43)."""
+    def res(inp, mid, hw):          # a Residual: bn1, bn2, bn3
+        return [(inp, hw, False), (mid, hw, True), (mid, hw, True)]
+    calls = [(64, 128, True)] + res(64, 64, 128) + res(128, 64, 64) \
+        + res(128, 128, 64)
+    for _ in range(3):
+        calls += res(256, 128, 64)                  # up1 at 64
+        for hw in (32, 16, 8, 4):                   # low1, low2/up1, low3
+            calls += 3 * res(256, 128, hw)
+        calls += res(256, 128, 64) + [(256, 64, True)]   # features
+    return calls
+
+
+def batch_norm_chain_ms(fn, calls, bs, grad):
+    """Device ms of one HG3 forward's BatchNorm chains (``fn(x, conv bias,
+    bn)`` for each of ``calls``, bf16 channels_last at ``bs``), and with
+    ``grad`` their backward too, all captured in one CUDA graph."""
+    import torch
+    from ubpl_torch.models.layers import BatchNorm
+    g = torch.Generator(device="cuda").manual_seed(0)
+    args = []
+    for C, hw, has_bias in calls:
+        x = torch.randn(bs, C, hw, hw, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        cb = (0.1 * torch.randn(C, device="cuda", generator=g)
+              if has_bias else None)
+        args.append((x.requires_grad_(grad),
+                     None if cb is None else cb.requires_grad_(grad),
+                     BatchNorm(C).cuda().train(), torch.randn_like(x)))
+
+    def chain():
+        for x, cb, bn, dy in args:
+            y = fn(x, cb, bn)
+            if grad:
+                leaves = [x, bn.weight, bn.bias] + ([] if cb is None
+                                                    else [cb])
+                torch.autograd.grad(y, leaves, dy, allow_unused=True)
+    with contextlib.nullcontext() if grad else torch.no_grad():
+        return cuda_graph_ms(chain, reps=5, inner=1)
+
+
+def batch_norm_relu_grads(fn, x, cb, dy, bn):
+    """y, the running statistics and the gradients of x, gamma, beta and
+    the conv bias (None without one) of ``fn(x, cb, bn)`` against ``dy``."""
+    import torch
+    x = x.detach().clone().requires_grad_()
+    cb = None if cb is None else cb.detach().clone().requires_grad_()
+    y = fn(x, cb, bn)
+    leaves = [x, bn.weight, bn.bias] + ([] if cb is None else [cb])
+    grads = torch.autograd.grad(y, leaves, dy.to(y.dtype))
+    return (y.detach(), bn.running_mean.clone(), bn.running_var.clone(),
+            *grads, *([None] if cb is None else []))
+
+
+def phase_kernel_batch_norm_relu():
+    """Triton BatchNorm + ReLU kernels vs their plain version at the main
+    path's shapes (bf16 channels_last, bs 32: C 64 at 128x128, 128 and 256
+    at 64x64, 256 at 16x16, 128 and 256 at 4x4; with and without a conv
+    bias), forward and backward against the plain version run in fp32 on
+    the same values: y and dx within one bf16 ulp of their scale (dx where
+    the pre-activation is not within 1e-4 of 0, where a rounding of the
+    statistics may flip the ReLU's mask), running stats rtol 1e-5, gamma's
+    and beta's gradients within 5e-3 of their norm, the conv bias's
+    gradient the fp32 sum of dx (within 2^-8 of the sum of |dx|, against
+    the returned dx and against the plain version's), two calls bit-equal.
+    Timed per MT_UBPL step (4 forwards without gradient and 4 with, each of
+    HG3's 139 calls; CUDA graphs) beside the byte bound, the plain version
+    and ATen's ``F.batch_norm`` + ``F.relu`` (``library_ms``)."""
+    import copy as _copy
+    import torch
+    import torch.nn.functional as F
+    from ubpl_torch.models.layers import BatchNorm
+    from ubpl_torch.ops.kernels import batch_norm_relu as BR
+    bs, errs = 32, {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for C, hw, has_bias in ((64, 128, True), (128, 64, False),
+                            (256, 64, True), (256, 16, True), (128, 4, True),
+                            (256, 4, False)):
+        x = (1.5 * torch.randn(bs, C, hw, hw, device="cuda", generator=g)
+             + 0.3).to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last)
+        cb = (0.2 * torch.randn(C, device="cuda", generator=g)
+              if has_bias else None)
+        dy = torch.randn(bs, C, hw, hw, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bn = BatchNorm(C).cuda().train()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.uniform_(-0.5, 0.5, generator=g)
+        ref_bn, again = _copy.deepcopy(bn), _copy.deepcopy(bn)
+        got = batch_norm_relu_grads(BR.batch_norm_relu, x, cb, dy, bn)
+        rep = batch_norm_relu_grads(BR.batch_norm_relu, x, cb, dy, again)
+        ref = batch_norm_relu_grads(BR.batch_norm_relu_plain, x.float(), cb,
+                                    dy.float(), ref_bn)
+        torch.cuda.synchronize()
+
+        def ulps(a, b, keep=None):
+            d = (a.float() - b).abs()
+            d = d if keep is None else d * keep
+            scale = float(b.abs().max())
+            return float(d.max()) / 2.0 ** (math.floor(math.log2(scale)) - 7)
+        v = x.double() + (0 if cb is None else cb.double().view(1, -1, 1, 1))
+        pre = ((v - v.mean((0, 2, 3), keepdim=True))
+               * v.var((0, 2, 3), unbiased=False, keepdim=True).add(
+                   bn.eps).rsqrt() * bn.weight.double().view(1, -1, 1, 1)
+               + bn.bias.double().view(1, -1, 1, 1)).abs() > 1e-4
+        stat = max(float(((a - b).abs() / b.abs().clamp_min(1e-3)).max())
+                   for a, b in zip(got[1:3], ref[1:3]))
+        affine = max(float((a - b).norm() / b.norm())
+                     for a, b in zip(got[4:6], ref[4:6]))
+        e = {"y_ulps": ulps(got[0], ref[0]), "running_rel": stat,
+             "dx_ulps": ulps(got[3], ref[3], pre), "dgamma_dbeta_rel": affine,
+             "repeat_equal": all(
+                 (a is None and b is None) or torch.equal(a, b)
+                 for a, b in zip(got, rep))}
+        ok = (e["y_ulps"] <= 1.0 and stat <= 1e-5 and e["dx_ulps"] <= 1.0
+              and affine <= 5e-3 and e["repeat_equal"])
+        if has_bias:
+            spread = got[3].double().abs().sum((0, 2, 3))
+            e["dbias_vs_dx_sum"] = float(((
+                got[6].double() - got[3].double().sum((0, 2, 3))).abs()
+                / spread).max())
+            e["dbias_vs_plain"] = float(
+                ((got[6].double() - ref[6].double()).abs() / spread).max())
+            ok = (ok and e["dbias_vs_dx_sum"] <= 2.0 ** -8
+                  and e["dbias_vs_plain"] <= 2.0 ** -8)
+        key = f"C{C}_{hw}x{hw}_{'bias' if has_bias else 'nobias'}"
+        errs[key] = e
+        if not ok:
+            raise AssertionError(f"batch_norm_relu {key}: {e}")
+    calls = hg3_batch_norm_calls()
+
+    def library(x, cb, bn):
+        return F.relu(F.batch_norm(x, bn.running_mean, bn.running_var,
+                                   bn.weight, bn.bias, True, bn.momentum,
+                                   bn.eps))
+
+    def step_ms(fn):
+        return (4 * batch_norm_chain_ms(fn, calls, bs, False)
+                + 4 * batch_norm_chain_ms(fn, calls, bs, True))
+    launches = BR.launches
+    kernel_ms = step_ms(BR.batch_norm_relu)
+    plain_ms = step_ms(BR.batch_norm_relu_plain)
+    library_ms = step_ms(library)
+    # bytes at the bound: forward reads x twice and writes y; backward
+    # reads x and dy twice and writes dx (bf16)
+    elems = sum(bs * C * hw * hw for C, hw, _ in calls)
+    nbytes = 2 * elems * (8 * 3 + 4 * 5)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"name": BR.NAME, "route": "triton", "source": BR.SOURCE,
+           "replaces": BR.REPLACES, "max_err_bf16_ulps": max(
+               max(e["y_ulps"], e["dx_ulps"]) for e in errs.values()),
+           "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "library_ms": library_ms}
+    emit({"phase": "kernel:batch_norm_relu", "errors": errs,
+          "per": "MT_UBPL step (HG3, bs 32: 8 forwards, 4 backwards)",
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": bound_ms,
+          "bytes": nbytes, "launches_while_checking": BR.launches - launches})
+    return rec
+
+
 def phase_reference():
     """Port HG2 on the reference golden, fp32, TF32 off: preds and feats
     within rtol 1e-4 / atol 2e-4 of the reference's eval forward."""
@@ -1902,7 +2067,10 @@ def phase_cli_mt_ubpl_pseudo(counts):
     unl = tr.unlabeled_idxs
     flipped = int(tr.train_data.islabeled[unl].sum())
     injected = int((tr.train_data.kps[unl, :, 2] > 0).sum())
-    selected = logs[-1]["selected"]
+    # a round that selects nothing applies nothing (as in the JAX package):
+    # the data hold the last round that selected keypoints
+    applied = [r["selected"] for r in logs if r["selected"] > 0]
+    selected = applied[-1] if applied else 0
     if tr._pseudo_rounds_done != 2 or injected != selected or (
             (selected > 0) != (flipped > 0)):
         raise AssertionError(f"rounds {tr._pseudo_rounds_done}, selected "
@@ -2436,7 +2604,8 @@ def main(argv=None):
         return only is None or name in only
 
     smi = phase_env()
-    records = {"heatmap_synth": phase_kernel_heatmap()}
+    records = {"heatmap_synth": phase_kernel_heatmap(),
+               "batch_norm_relu": phase_kernel_batch_norm_relu()}
     if want("reference"):
         phase_reference()
     paths = [phase(counts) for phase in (phase_serve, phase_train)
@@ -2474,7 +2643,7 @@ def main(argv=None):
         finally:
             shutil.rmtree(SMOKE_DATA, ignore_errors=True)
     for name, rec in records.items():
-        rec["launches"] = sum(launches[name] for launches in paths)
+        rec["launches"] = sum(launches.get(name, 0) for launches in paths)
         if rec["launches"] == 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
     emit({"kernels": list(records.values())})

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.batch_norm_relu import batch_norm_relu
 from ..parallel.collectives import (BatchGroup, all_gather_stacked,
                                     all_reduce_sum)
 
@@ -168,8 +169,25 @@ def set_batch_group(model, group):
     return model
 
 
+def _fused(x, *bns):
+    """Whether the BatchNorms ``bns`` on ``x`` and the ReLUs after them run
+    as ``batch_norm_relu`` (the conv before each then leaves its bias to
+    that op): a CUDA tensor, train mode over this process's batch.  Eval
+    mode, the global statistics of a batch group and the CPU keep their own
+    ops (on the CPU the conv keeps its bias, so a CPU run rounds as it did
+    before the kernels)."""
+    if not x.is_cuda:
+        return False
+    for bn in bns:
+        if not bn.training or bn.group is not None:
+            return False
+    return True
+
+
 class ConvBlock(nn.Module):
-    """Reference Conv: conv(+bias) -> optional BN -> optional ReLU."""
+    """Reference Conv: conv(+bias) -> optional BN -> optional ReLU.  With
+    both on a CUDA tensor in train mode over this process's batch, the bias,
+    BN and ReLU run as one ``batch_norm_relu``."""
 
     def __init__(self, inp_dim, out_dim, kernel_size=3, stride=1, bn=False,
                  relu=True):
@@ -180,6 +198,9 @@ class ConvBlock(nn.Module):
         self.relu = relu
 
     def forward(self, x):
+        if self.relu and self.bn is not None and _fused(x, self.bn):
+            return batch_norm_relu(self.conv_without_bias(x), self.conv.bias,
+                                   self.bn)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
@@ -187,10 +208,20 @@ class ConvBlock(nn.Module):
             x = F.relu(x)
         return x
 
+    def conv_without_bias(self, x):
+        """The conv without its bias, which the BatchNorm + ReLU kernel
+        that follows adds."""
+        c = self.conv
+        return F.conv2d(x, c.weight, None, c.stride, c.padding, c.dilation,
+                        c.groups)
+
 
 class Residual(nn.Module):
     """Reference Residual: pre-activation BN-ReLU 1-3-1 bottleneck + skip;
-    the 1x1 skip conv exists only where the width changes."""
+    the 1x1 skip conv exists only where the width changes.  On a CUDA
+    tensor in train mode over this process's batch each BN-ReLU runs as one
+    ``batch_norm_relu``, which takes ``conv1``'s and ``conv2``'s biases from
+    their convs."""
 
     def __init__(self, inp_dim, out_dim):
         super().__init__()
@@ -206,9 +237,17 @@ class Residual(nn.Module):
 
     def forward(self, x):
         residual = x if self.skip_layer is None else self.skip_layer(x)
-        out = self.conv1(F.relu(self.bn1(x)))
-        out = self.conv2(F.relu(self.bn2(out)))
-        out = self.conv3(F.relu(self.bn3(out)))
+        if _fused(x, self.bn1, self.bn2, self.bn3):
+            out = self.conv1.conv_without_bias(batch_norm_relu(x, None,
+                                                               self.bn1))
+            out = self.conv2.conv_without_bias(batch_norm_relu(
+                out, self.conv1.conv.bias, self.bn2))
+            out = self.conv3(batch_norm_relu(out, self.conv2.conv.bias,
+                                             self.bn3))
+        else:
+            out = self.conv1(F.relu(self.bn1(x)))
+            out = self.conv2(F.relu(self.bn2(out)))
+            out = self.conv3(F.relu(self.bn3(out)))
         return out + residual
 
 
